@@ -1,0 +1,75 @@
+"""yet_another_wizz_tpu_torch: clustering-redshift estimation in PyTorch.
+
+The PyTorch + CUDA counterpart of ``yet_another_wizz_tpu``. It runs the
+cross-correlation measurement (``crosscorrelate`` with reference randoms)
+and jackknife n(z) recovery (``RedshiftData.from_corrfuncs``) with the same
+host pipeline as the JAX package: patch-resolved catalogs, Morton-sorted
+point tiles, a cap-pruned tile-pair list, and the float64 estimators. The
+pair-count engine is a hand-written CUDA kernel
+(:mod:`yet_another_wizz_tpu_torch.ops.cuda_paircount`) for tensors on a
+CUDA device, with a plain PyTorch engine for tensors on the CPU.
+
+This package imports neither ``jax`` nor ``yet_another_wizz_tpu``.
+"""
+
+from yet_another_wizz_tpu_torch._version import __version__, __version_tuple__
+from yet_another_wizz_tpu_torch.binning import Binning
+from yet_another_wizz_tpu_torch.coordinates import (
+    AngularCoordinates,
+    AngularDistances,
+)
+from yet_another_wizz_tpu_torch.cosmology import (
+    CustomCosmology,
+    FLRWCosmology,
+    Planck15,
+    cosmology_is_equal,
+    get_default_cosmology,
+    new_scales,
+)
+
+__all__ = [
+    "AngularCoordinates",
+    "AngularDistances",
+    "Binning",
+    "Catalog",
+    "Configuration",
+    "CorrData",
+    "CorrFunc",
+    "CustomCosmology",
+    "FLRWCosmology",
+    "Planck15",
+    "RedshiftData",
+    "__version__",
+    "__version_tuple__",
+    "cosmology_is_equal",
+    "crosscorrelate",
+    "get_default_cosmology",
+    "new_scales",
+]
+
+
+def __getattr__(name):
+    # late imports keep config-only use free of torch
+    if name == "Catalog":
+        from yet_another_wizz_tpu_torch.catalog import Catalog
+
+        return Catalog
+    if name == "Configuration":
+        from yet_another_wizz_tpu_torch.config import Configuration
+
+        return Configuration
+    if name in ("CorrData", "CorrFunc"):
+        from yet_another_wizz_tpu_torch import correlation
+
+        return getattr(correlation, name)
+    if name == "crosscorrelate":
+        from yet_another_wizz_tpu_torch.correlation.measurements import (
+            crosscorrelate,
+        )
+
+        return crosscorrelate
+    if name == "RedshiftData":
+        from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+
+        return RedshiftData
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
