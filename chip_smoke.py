@@ -7,22 +7,40 @@ toolkit::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``yet_another_wizz_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, drives
-the main path once at the size of the JAX package's headline benchmark
-(mock data -> ``Catalog.from_arrays`` with 64 kmeans patches ->
-``crosscorrelate`` DD + RD -> ``RedshiftData.from_corrfuncs`` with
-jackknife), checks the counts against the float64 scipy oracle, and times
-the warm measurement. Every phase raises on failure, so the exit code is
-non-zero; the last line of standard output is the JSON result
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
-before printing a result.
+It builds the CUDA kernels from ``yet_another_wizz_tpu_torch/csrc`` (one
+``nvcc`` per counting mode, started together), holds every variant of the
+pair-count kernel against its plain PyTorch version on the card, on the
+inputs of its path, and drives each path once at the size of the JAX
+package's benchmark (200k reference, 500k unknown, 1M random points, 64
+kmeans patches, 11 redshift bins), through the entry points a user calls:
+
+- the main path (slice 1): ``crosscorrelate`` DD + RD ->
+  ``RedshiftData.from_corrfuncs`` with jackknife (kernel K1.1);
+- w_ss: ``autocorrelate`` DD + DR + RR (Landy-Szalay) ->
+  ``from_corrfuncs(w_sp, ref_corr=w_ss)`` (binned columns, K1.2);
+- config B: three scales with ``rweight=-1`` at resolution 32, which the
+  ``auto`` counting mode runs in direct mode: ``crosscorrelate`` and
+  ``autocorrelate`` -> n(z) per scale (K1.3, unbinned and binned);
+- scalar: ``crosscorrelate_scalar`` (``kn``, with randoms) and
+  ``autocorrelate_scalar`` (``kk``) on a reference with signed kappa
+  (K1.5: K1.1 and K1.2 with signed weights);
+- wide grid: scales up to 1.35 rad, wider than the small-angle index
+  covers: ``crosscorrelate`` and ``autocorrelate`` (K1.4, the arcsine
+  index, unbinned and binned).
+
+Every path resets the kernels' launch counts before it runs and checks
+after it that each variant of the path launched. The counts are checked
+against the float64 scipy oracle, and each path is timed warm. Every
+phase raises on failure, so the exit code is non-zero; the last line of
+standard output is the JSON result ``{"ok": true, "device": {...}}``.
+Without a CUDA card it exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -34,18 +52,53 @@ NUM_RANDOMS = 1_000_000
 NUM_PATCHES = 64
 NUM_BINS = 11
 SEED = 12345
-CONFIG = dict(
-    rmin=100, rmax=1000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=NUM_BINS
+ZRANGE = dict(zmin=0.15, zmax=1.0, num_bins=NUM_BINS)
+CONFIG = dict(rmin=100, rmax=1000, unit="kpc", **ZRANGE)
+CONFIG_B = dict(
+    rmin=[100, 300, 500], rmax=[300, 500, 1000], unit="kpc", rweight=-1.0,
+    resolution=32, **ZRANGE,
 )
+"""The JAX benchmark's multi-scale separation-weighted configuration
+(``bench.py:1016-1020``): 33+ union edges, so ``auto`` counts directly."""
+CONFIG_WIDE = dict(
+    rmin=[0.05, 0.4], rmax=[0.5, 1.35], unit="rad", rweight=-1.0,
+    resolution=24, **ZRANGE,
+)
+"""The JAX test's wide grid (``tests/test_engine.py:1294``): edges beyond
+THETA_POLY_MAX = 1.2 rad take the arcsine index."""
 RTOL = 1e-6
-"""Tolerance of every comparison: relative 1e-6, with an absolute floor
-of 1e-6 times the largest reference value. Kernel and plain version share
-the chord arithmetic and differ in the order of float32 sums."""
+"""Tolerance of the cumulative comparisons: relative 1e-6, with an
+absolute floor of 1e-6 times the largest reference value. Kernel and
+plain version share the chord arithmetic and differ in the order of
+float32 sums."""
+DIRECT_RTOL = 1e-5
+"""Kernel vs plain version in direct mode: a 1-ulp difference in ``logf``
+moves a pair within ~1e-7 of a sub-edge into the neighbouring
+sub-interval (the JAX package's own direct-mode tolerance)."""
+DIRECT_ORACLE_RTOL = 5e-5
+"""Direct-mode per-scale counts against the union-edge float64 oracle,
+per scale max|err| / max|oracle| (the JAX package's measurement
+tolerance, ``tests/test_engine.py:1234-1236``)."""
+SCALAR_ORACLE_RTOL = 1e-5
+"""Signed (kappa) counts against the float64 oracle, per-slot max|err| /
+max|oracle|: a sum of signed terms loses the relative float32 precision
+its cancellation removes."""
 WARM_RUNS = 5
 KERNEL_REPS = 5
 PLAIN_CHUNK = 64
 """Tile pairs per batch of the plain engine on the card (64 MiB per
 (chunk, 512, 512) float32 temporary)."""
+PLAIN_LIMIT = 2048
+"""Tile pairs a new variant is held against its plain version on (the
+first entries of its path's pair list): the plain direct-mode engine
+takes ~1 ms per tile pair."""
+RR_ORACLE_SLOTS = 48
+"""Slots of the 1M-random RR count checked against the oracle."""
+F32_RATE = 67e12
+"""Float32 operations/s of one H100 SXM outside the tensor cores (NVIDIA
+data sheet, at the 700 W power limit)."""
+HBM_RATE = 3.35e12
+"""Device memory bytes/s of one H100 SXM."""
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
 
@@ -59,19 +112,17 @@ def check(condition: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
-def compare(actual, desired) -> tuple[float, float]:
+def compare(actual, desired, rtol: float = RTOL) -> tuple[float, float]:
     """``(max_abs_err, max_rel_err)`` of two tensors; raises unless they
-    agree within :data:`RTOL` (absolute floor ``RTOL * max|desired|``)."""
-    import torch
-
+    agree within ``rtol`` (absolute floor ``rtol * max|desired|``)."""
     actual = actual.double()
     desired = desired.double()
     diff = (actual - desired).abs()
-    floor = RTOL * desired.abs().max().item()
-    within = diff <= RTOL * desired.abs() + floor
+    floor = rtol * desired.abs().max().item()
+    within = diff <= rtol * desired.abs() + floor
     big = desired.abs() > floor
     rel = (diff[big] / desired.abs()[big]).max().item() if big.any() else 0.0
-    check(bool(within.all()), f"disagreement beyond rtol {RTOL}: max rel {rel:.3e}")
+    check(bool(within.all()), f"disagreement beyond rtol {rtol}: max rel {rel:.3e}")
     return diff.max().item(), rel
 
 
@@ -115,22 +166,54 @@ def environment() -> str:
     return smi
 
 
+def ptxas_summary(compiler_log: str) -> list[str]:
+    """One line per kernel instance: template arguments, registers and
+    spill bytes, from ``nvcc -Xptxas -v``."""
+    lines, name, spill = [], None, ""
+    variant = re.compile(r"partials_kernelILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E")
+    for line in compiler_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            match = variant.search(name)
+            if match:
+                ne, binned, direct, adj = match.groups()
+                name = f"A<NE={ne}, binned={binned}, direct={direct}, adj={adj}>"
+            elif "segment_sum" in name:
+                name = "B segment_sum"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if stores:
+            spill = f"spill {stores.group(1)}/{stores.group(2)} B"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            lines.append(f"{name}: {used.group(1)} registers, {spill}")
+            name = None
+    return lines
+
+
 def build_kernels() -> None:
     from yet_another_wizz_tpu_torch import _native
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
 
     t0 = time.perf_counter()
     compiler_log = cuda_paircount.build()
-    log(f"built CUDA kernels in {time.perf_counter() - t0:.2f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"built CUDA kernels ({len(cuda_paircount.MODES)} nvcc processes in "
+        f"parallel) in {time.perf_counter() - t0:.2f} s")
+    summary = ptxas_summary(compiler_log)
+    for line in summary:
+        log(f"  ptxas: {line}")
+    spilling = [line for line in summary if "spill 0/0 B" not in line]
+    log(f"  ptxas: {len(summary)} kernel instances, {len(spilling)} spill")
     t0 = time.perf_counter()
     log(f"native host library: {'built' if _native.enabled() else 'MISSING'} "
         f"in {time.perf_counter() - t0:.2f} s")
 
 
 def make_catalogs():
+    """The benchmark's mock catalogs; the reference carries a kappa column
+    drawn from the seed (used only by the scalar measurements)."""
+    import numpy as np
+
     from yet_another_wizz_tpu_torch.catalog import Catalog
     from yet_another_wizz_tpu_torch.examples import generate_mock_data
 
@@ -140,10 +223,12 @@ def make_catalogs():
         num_reference=NUM_REFERENCE, num_unknown=NUM_UNKNOWN,
         num_randoms=NUM_RANDOMS, seed=SEED,
     )
+    kappa = np.random.default_rng(SEED).normal(0.1, 0.3, NUM_REFERENCE)
     stages["mock"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reference = Catalog.from_arrays(
-        **mock["reference"], degrees=False, patch_num=NUM_PATCHES
+        **mock["reference"], kappa=kappa, degrees=False,
+        patch_num=NUM_PATCHES,
     )
     centers = reference.get_centers()
     unknown = Catalog.from_arrays(
@@ -156,81 +241,238 @@ def make_catalogs():
     return (reference, unknown, randoms), stages
 
 
-def kernels_vs_plain(catalogs, config) -> dict:
-    """Each kernel against its plain version on the headline DD inputs."""
+# -- counts of one measurement ----------------------------------------------
+
+COUNTS = {
+    # name: (rows, columns (None: auto), binned2, mode); catalog indices
+    # 0 reference, 1 unknown, 2 randoms
+    "cross DD": (0, 1, False, "nn"),
+    "cross RD": (2, 1, False, "nn"),
+    "cross DR": (0, 2, False, "nn"),
+    "auto DD": (0, None, True, "nn"),
+    "auto DR": (0, 2, True, "nn"),
+    "auto RR": (2, None, True, "nn"),
+    "scalar kn DD": (0, 1, False, "kn"),
+    "scalar kn DR": (0, 2, False, "kn"),
+    "scalar kk DD": (0, None, True, "kk"),
+}
+
+
+def engine_inputs(links, catalogs, count):
+    rows, cols, binned2, mode = COUNTS[count]
+    auto = cols is None
+    return links._build_engine_inputs(
+        catalogs[rows], catalogs[rows if auto else cols], auto=auto,
+        binned2=binned2, mode=mode,
+    )
+
+
+def ops_per_pair(table_width: int, direct: tuple | None) -> int:
+    """float32 operations per candidate pair (``BASELINE.md:40-53``): 15 for
+    the compensated chord, 1 for the column weight, 3 per counting edge;
+    direct mode adds 12 (small-angle) or 18 (arcsine) and 3 per
+    adjustment entry."""
+    from yet_another_wizz_tpu_torch.ops.gweight import counting_width
+
+    ops = 16 + 3 * counting_width(table_width, direct)
+    if direct is not None:
+        ops += (12 if direct[3] else 18) + 3 * (direct[1] + direct[2])
+    return ops
+
+
+def bound(operations: float, num_bytes: float) -> tuple[float, str]:
+    """The least milliseconds the card could take, and what bounds it."""
+    t_ops = operations / F32_RATE
+    t_bytes = num_bytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
+    """A kernel-A variant against its plain version on the inputs of one
+    count of its path (the first ``limit`` entries of the pair list): two
+    kernel runs bitwise equal, the error, the kernel's and the plain
+    version's milliseconds, and the bound."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.ops.paircount import partial_counts_torch
+
+    tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+    table_np, _, direct, _ = links.engine_table()
+    device = torch.device("cuda")
+    lanes1 = tiles1.device_data(device)
+    lanes2 = tiles2.device_data(device)
+    table = torch.from_numpy(table_np).to(device)
+    k = slice(0, limit)
+    tile1 = torch.from_numpy(pairs.tile1[k]).to(device)
+    tile2 = torch.from_numpy(pairs.tile2[k]).to(device)
+    kwargs = dict(cols_binned=tiles2.binned, direct=direct)
+    name = cuda_paircount.variant_name(tiles2.binned, direct)
+
+    def kernel():
+        return cuda_paircount.paircount_partials(
+            lanes1, lanes2, tile1, tile2, table, **kwargs
+        )
+
+    def plain():
+        return partial_counts_torch(
+            lanes1, lanes2, tile1.long(), tile2.long(), table,
+            chunk_size=PLAIN_CHUNK, **kwargs,
+        )
+
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), f"{name} is not deterministic")
+    expected = plain()
+    torch.cuda.synchronize()
+    err = compare(first, expected, RTOL if direct is None else DIRECT_RTOL)
+    num_pairs = len(tile1)
+    candidates = num_pairs * tiles1.tile_size ** 2
+    bound_ms, bound_by = bound(
+        candidates * ops_per_pair(table.shape[1], direct),
+        nbytes(lanes1, lanes2, tile1, tile2, table, first),
+    )
+    result = dict(
+        name=name, count=count, tile_pairs=num_pairs, err=err,
+        ms=cuda_ms(kernel, KERNEL_REPS), plain_ms=cuda_ms(plain, 1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        negative=bool((lanes1[tile1.long(), 6] < 0).any()),
+    )
+    log(f"[{card}] {name} [{count}, {num_pairs} of {pairs.num_pairs} tile pairs, "
+        f"table {tuple(table.shape)}, direct {direct}]: kernel "
+        f"{result['ms']:.3f} ms, plain {result['plain_ms']:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), max abs err {err[0]:.3e}, max rel "
+        f"err {err[1]:.3e}, two kernel runs bitwise equal")
+    return result
+
+
+def kernels_vs_plain(card, catalogs, configs) -> dict:
+    """Every kernel against its plain version on the card, on the real
+    inputs of its path."""
     import numpy as np
     import torch
 
     from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
-    from yet_another_wizz_tpu_torch.ops.paircount import (
-        partial_counts_torch,
-        segment_sum_torch,
-    )
+    from yet_another_wizz_tpu_torch.ops.paircount import segment_sum_torch
 
     reference, unknown, randoms = catalogs
-    links = PatchLinkage.from_catalogs(config, reference, unknown, randoms)
-    tiles1, tiles2, pairs = links._build_engine_inputs(
-        reference, unknown, mode="nn"
+    links = {
+        name: PatchLinkage.from_catalogs(config, *catalogs)
+        for name, config in configs.items()
+    }
+    results = {}
+    # K1.1 on the full headline DD list, and kernel B on its partials
+    results["paircount_partials"] = variant_check(
+        card, links["headline"], catalogs, "cross DD", limit=None
     )
+    tiles1, tiles2, pairs = engine_inputs(links["headline"], catalogs, "cross DD")
     device = torch.device("cuda")
-    lanes1 = tiles1.device_data(device)
-    lanes2 = tiles2.device_data(device)
-    table = torch.from_numpy(links.edges.chord2_table).to(device)
-    tile1 = torch.from_numpy(pairs.tile1).to(device)
-    tile2 = torch.from_numpy(pairs.tile2).to(device)
+    partial = cuda_paircount.paircount_partials(
+        tiles1.device_data(device), tiles2.device_data(device),
+        torch.from_numpy(pairs.tile1).to(device),
+        torch.from_numpy(pairs.tile2).to(device),
+        torch.from_numpy(links["headline"].edges.chord2_table).to(device),
+    )
     slot = torch.from_numpy(pairs.slot.astype(np.int64)).to(device)
     offsets = torch.from_numpy(
         np.searchsorted(pairs.slot, np.arange(pairs.num_slots + 1))
     ).to(device)
-    log(f"DD inputs: {pairs.num_pairs} tile pairs in {pairs.num_slots} slots, "
-        f"lanes {tuple(lanes1.shape)} x {tuple(lanes2.shape)}, "
-        f"table {tuple(table.shape)}")
-
-    def partials():
-        return cuda_paircount.paircount_partials(
-            lanes1, lanes2, tile1, tile2, table
-        )
-
-    def plain_partials():
-        return partial_counts_torch(
-            lanes1, lanes2, tile1.long(), tile2.long(), table,
-            chunk_size=PLAIN_CHUNK,
-        )
-
-    first, second = partials(), partials()
-    torch.cuda.synchronize()
-    check(torch.equal(first, second), "paircount_partials is not deterministic")
-    plain = plain_partials()
-    torch.cuda.synchronize()
-    err_a = compare(first, plain)
 
     def seg():
-        return cuda_paircount.segment_sum(first, slot, offsets, pairs.num_slots)
+        return cuda_paircount.segment_sum(partial, slot, offsets, pairs.num_slots)
 
     def plain_seg():
-        return segment_sum_torch(first, slot, pairs.num_slots)
+        return segment_sum_torch(partial, slot, pairs.num_slots)
+
+    zeros = torch.zeros((pairs.num_slots, *partial.shape[1:]), device=device)
+
+    def library_seg():
+        return zeros.index_add_(0, slot, partial)
 
     out, out2 = seg(), seg()
     torch.cuda.synchronize()
     check(torch.equal(out, out2), "segment_sum is not deterministic")
-    err_b = compare(out, plain_seg())
+    err = compare(out, plain_seg())
+    bound_ms, bound_by = bound(
+        partial.numel(), nbytes(partial, offsets, out)
+    )
+    results["paircount_segment_sum"] = dict(
+        name="paircount_segment_sum", count="cross DD",
+        tile_pairs=pairs.num_pairs, err=err, ms=cuda_ms(seg, KERNEL_REPS),
+        plain_ms=cuda_ms(plain_seg, KERNEL_REPS), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=cuda_ms(library_seg, KERNEL_REPS),
+    )
+    r = results["paircount_segment_sum"]
+    log(f"[{card}] paircount_segment_sum [cross DD, {pairs.num_slots} slots]: kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, index_add_ "
+        f"{r['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), max "
+        f"abs err {err[0]:.3e}, two kernel runs bitwise equal")
 
-    results = {
-        "paircount_partials": dict(
-            err=err_a, ms=cuda_ms(partials, KERNEL_REPS),
-            plain_ms=cuda_ms(plain_partials, 2),
-        ),
-        "paircount_segment_sum": dict(
-            err=err_b, ms=cuda_ms(seg, KERNEL_REPS),
-            plain_ms=cuda_ms(plain_seg, KERNEL_REPS),
-        ),
-    }
-    for name, r in results.items():
-        log(f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"max abs err {r['err'][0]:.3e}, max rel err {r['err'][1]:.3e}, "
-            "two kernel runs bitwise equal")
+    for key, config, count in (
+        ("paircount_partials_binned", "headline", "auto DD"),
+        ("paircount_partials_direct", "B", "cross DD"),
+        ("paircount_partials_direct_binned", "B", "auto DD"),
+        ("paircount_partials_arcsine", "wide", "cross DD"),
+        ("paircount_partials_arcsine_binned", "wide", "auto DD"),
+        ("paircount_partials_signed", "headline", "scalar kn DD"),
+        ("paircount_partials_binned_signed", "headline", "scalar kk DD"),
+    ):
+        result = variant_check(
+            card, links[config], catalogs, count, limit=PLAIN_LIMIT
+        )
+        expected = key.removesuffix("_signed")
+        check(result["name"] == expected, f"{count} ran {result['name']}")
+        if key.endswith("_signed"):
+            check(result["negative"], f"{count} has no negative weights")
+            result["name"] = key
+        results[key] = result
     return results
+
+
+# -- float64 oracle -----------------------------------------------------------
+
+
+def oracle_counts(links, catalogs, count, slots=None):
+    """The engine's per-slot cumulative counts of one count (on the card)
+    and the float64 oracle's, on the union-edge table, for all slots or
+    the given slot indices."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.ops.cpu_oracle import (
+        count_pairs_oracle_multiprocess,
+    )
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        _unpack_tileset,
+        count_pairs_tiles,
+    )
+
+    tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+    xyz1, w1, z1, p1 = _unpack_tileset(tiles1)
+    xyz2, w2, z2, p2 = _unpack_tileset(tiles2)
+    slot_patches = pairs.slot_patches if slots is None else pairs.slot_patches[slots]
+    t0 = time.perf_counter()
+    oracle = count_pairs_oracle_multiprocess(
+        xyz1, w1, z1, p1, xyz2, w2, z2 if tiles2.binned else None, p2,
+        slot_patches, links.edges.edges,
+        max_workers=len(os.sched_getaffinity(0)),
+    )
+    seconds = time.perf_counter() - t0
+    table, _, direct, mapper = links.engine_table()
+    engine = count_pairs_tiles(
+        tiles1, tiles2, pairs, table, device="cuda", direct=direct
+    )
+    if slots is not None:
+        engine = engine[slots]
+    if direct is not None:  # compare per-scale counts
+        return mapper.counts_to_scales(engine), links.edges.counts_to_scales(
+            oracle
+        ), pairs, seconds
+    return engine, oracle, pairs, seconds
 
 
 def oracle_check(catalogs, config, wsp) -> None:
@@ -240,34 +482,12 @@ def oracle_check(catalogs, config, wsp) -> None:
     import numpy as np
 
     from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
-    from yet_another_wizz_tpu_torch.ops.cpu_oracle import (
-        count_pairs_oracle_multiprocess,
-    )
-    from yet_another_wizz_tpu_torch.ops.paircount import (
-        _unpack_tileset,
-        count_pairs_tiles,
-    )
 
-    reference, unknown, randoms = catalogs
-    links = PatchLinkage.from_catalogs(config, reference, unknown, randoms)
-    workers = len(os.sched_getaffinity(0))
-    for name, rows, counts in (
-        ("DD", reference, wsp.dd), ("RD", randoms, wsp.rd)
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    for name, count, counts in (
+        ("DD", "cross DD", wsp.dd), ("RD", "cross RD", wsp.rd)
     ):
-        tiles1, tiles2, pairs = links._build_engine_inputs(
-            rows, unknown, mode="nn"
-        )
-        xyz1, w1, z1, p1 = _unpack_tileset(tiles1)
-        xyz2, w2, _, p2 = _unpack_tileset(tiles2)
-        t0 = time.perf_counter()
-        oracle = count_pairs_oracle_multiprocess(
-            xyz1, w1, z1, p1, xyz2, w2, None, p2,
-            pairs.slot_patches, links.edges.edges, max_workers=workers,
-        )
-        t_oracle = time.perf_counter() - t0
-        engine = count_pairs_tiles(
-            tiles1, tiles2, pairs, links.edges.chord2_table, device="cuda"
-        )
+        engine, oracle, pairs, t_oracle = oracle_counts(links, catalogs, count)
         scale = np.abs(oracle).max()
         slot_err = np.abs(engine - oracle).max() / scale
         nonzero = oracle != 0
@@ -285,7 +505,7 @@ def oracle_check(catalogs, config, wsp) -> None:
         total_rel = (np.abs(totals_e - totals_o) / np.abs(totals_o))[
             totals_o > 0
         ].max()
-        log(f"{name} vs float64 oracle ({workers} processes, {t_oracle:.1f} s): "
+        log(f"{name} vs float64 oracle ({t_oracle:.1f} s): "
             f"per-slot max|err|/max|oracle| {slot_err:.3e}, main-path "
             f"patch-pair counts {path_err:.3e}, per-bin totals max rel "
             f"{total_rel:.3e} (per-slot max rel {slot_rel:.3e}, not gated: a "
@@ -293,6 +513,177 @@ def oracle_check(catalogs, config, wsp) -> None:
         check(slot_err <= RTOL, f"{name} per-slot counts off the oracle")
         check(path_err <= RTOL, f"{name} main-path counts off the oracle")
         check(total_rel <= RTOL, f"{name} per-bin totals off the oracle")
+
+
+def main_path_counts(corr, pairs, auto: bool):
+    """Per-slot counts ``(slots, B)`` of a measured count, undoing the
+    autocorrelation's halving of same-patch slots."""
+    p_1, p_2 = pairs.slot_patches[:, 0], pairs.slot_patches[:, 1]
+    values = corr.counts.counts[:, p_1, p_2].T.copy()
+    if auto:
+        values[p_1 == p_2] *= 2.0
+    return values
+
+
+def wss_oracle_check(catalogs, config, wss) -> None:
+    """w_ss DD and DR (binned columns) against the float64 oracle on every
+    slot, RR on a subset of slots."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+
+    links = PatchLinkage.from_catalogs(config, catalogs[0], catalogs[2])
+    for name, count, counts in (
+        ("DD", "auto DD", wss.dd), ("DR", "auto DR", wss.dr),
+        ("RR", "auto RR", wss.rr),
+    ):
+        _, _, pairs = engine_inputs(links, catalogs, count)
+        slots = None
+        if name == "RR":
+            slots = np.linspace(0, pairs.num_slots - 1, RR_ORACLE_SLOTS).astype(int)
+        engine, oracle, pairs, t_oracle = oracle_counts(
+            links, catalogs, count, slots
+        )
+        slot_err = np.abs(engine - oracle).max() / np.abs(oracle).max()
+        main_path = main_path_counts(counts, pairs, COUNTS[count][1] is None)
+        if slots is not None:
+            main_path = main_path[slots]
+        oracle_scale = links.edges.counts_to_scales(oracle)[0]
+        path_err = np.abs(main_path - oracle_scale).max() / np.abs(
+            oracle_scale
+        ).max()
+        log(f"w_ss {name} vs float64 oracle ({len(oracle)} slots, "
+            f"{t_oracle:.1f} s): per-slot max|err|/max|oracle| {slot_err:.3e}, "
+            f"main-path patch-pair counts {path_err:.3e}")
+        check(slot_err <= RTOL, f"w_ss {name} per-slot counts off the oracle")
+        check(path_err <= RTOL, f"w_ss {name} main-path counts off the oracle")
+
+
+def direct_oracle_check(catalogs, config, wsp_scales, wss_scales) -> None:
+    """Config B per-scale DD counts (direct mode on the card) against the
+    union-edge cumulative float64 oracle."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    check(links.edges.direct is not None, "config B does not count directly")
+    for name, count, scales in (
+        ("crosscorrelate DD", "cross DD", wsp_scales),
+        ("autocorrelate DD", "auto DD", wss_scales),
+    ):
+        engine, oracle, pairs, t_oracle = oracle_counts(links, catalogs, count)
+        errs = []
+        for s, corr in enumerate(scales):
+            norm = np.abs(oracle[s]).max()
+            main_path = main_path_counts(corr.dd, pairs, COUNTS[count][1] is None)
+            errs.append(max(
+                np.abs(engine[s] - oracle[s]).max() / norm,
+                np.abs(main_path - oracle[s]).max() / norm,
+            ))
+        log(f"config B {name} vs union-edge float64 oracle ({t_oracle:.1f} s): "
+            "per-scale max|err|/max|oracle| "
+            + ", ".join(f"{e:.3e}" for e in errs))
+        check(max(errs) <= DIRECT_ORACLE_RTOL, f"config B {name} off the oracle")
+
+
+def scalar_oracle_check(catalogs, config, kn, kk) -> None:
+    """The signed kappa counts of the scalar path against the oracle
+    backend (float64 kd-trees on the kappa-weighted tiles)."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+
+    reference, unknown, _ = catalogs
+    for name, links, args, mode, corr in (
+        ("kn DD", PatchLinkage.from_catalogs(config, *catalogs), (reference, unknown), "kn", kn),
+        ("kk DD", PatchLinkage.from_catalogs(config, reference), (reference,), "kk", kk),
+    ):
+        t0 = time.perf_counter()
+        (oracle,) = links.count_pairs(*args, mode=mode, backend="oracle")
+        seconds = time.perf_counter() - t0
+        expected = oracle.counts.counts
+        actual = corr.dd._counts.counts
+        err = np.abs(actual - expected).max() / np.abs(expected).max()
+        log(f"scalar {name} vs float64 oracle ({seconds:.1f} s): patch-pair "
+            f"max|err|/max|oracle| {err:.3e}, negative counts "
+            f"{int(np.sum(expected < 0))}")
+        check(err <= SCALAR_ORACLE_RTOL, f"scalar {name} off the oracle")
+
+
+# -- paths ----------------------------------------------------------------------
+
+
+def run_path(name: str, fn, expected: dict, launches_total: dict):
+    """Drive one path with the launch counts set to 0 just before it; check
+    that each expected variant launched at least as often as given."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+
+    cuda_paircount.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    log(f"{name} path (cold) {seconds:.2f} s, kernel launches {launches}")
+    for variant, count in expected.items():
+        check(launches.get(variant, 0) >= count,
+              f"{name}: {variant} launched {launches.get(variant, 0)} times, "
+              f"expected at least {count}")
+    for variant, count in launches.items():
+        launches_total[variant] = launches_total.get(variant, 0) + count
+    return result, launches
+
+
+def check_nz(nz, label: str) -> None:
+    import numpy as np
+
+    for field in ("data", "error", "covariance"):
+        check(bool(np.all(np.isfinite(getattr(nz, field)))),
+              f"{label} n(z) {field} is not finite")
+    check(nz.data.shape == (NUM_BINS,), f"{label} n(z) has the wrong shape")
+    check(nz.samples.shape == (NUM_PATCHES, NUM_BINS), f"{label} wrong sample shape")
+
+
+def warm_time(fn, runs: int = WARM_RUNS) -> tuple[float, float, float]:
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), min(times), max(times)
+
+
+def engine_times(card, label, links, catalogs, counts) -> float:
+    """Kernel milliseconds (CUDA events) of each count of a path, with its
+    candidate pairs; returns the sum."""
+    from yet_another_wizz_tpu_torch.ops.paircount import count_pairs_tiles
+
+    table, _, direct, _ = links.engine_table()
+    total = 0.0
+    for count in counts:
+        tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+
+        def run():
+            return count_pairs_tiles(
+                tiles1, tiles2, pairs, table, backend="cuda", device="cuda",
+                defer=True, direct=direct,
+            )
+
+        ms = cuda_ms(run, 3)
+        candidates = pairs.num_pairs * tiles1.tile_size ** 2
+        total += ms
+        log(f"[{card}] {label} {count} ({pairs.num_pairs} tile pairs, "
+            f"{candidates:.4e} candidate pairs): kernels {ms:.3f} ms "
+            f"({candidates / (ms * 1e-3):.4e} pairs/s)")
+    return total
 
 
 def main() -> None:
@@ -304,29 +695,42 @@ def main() -> None:
     from yet_another_wizz_tpu_torch.config import Configuration
     from yet_another_wizz_tpu_torch.correlation.measurements import (
         PatchLinkage,
+        autocorrelate,
+        autocorrelate_scalar,
         crosscorrelate,
+        crosscorrelate_scalar,
     )
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount
     from yet_another_wizz_tpu_torch.ops.paircount import count_pairs_tiles
     from yet_another_wizz_tpu_torch.redshifts import RedshiftData
 
+    t_start = time.perf_counter()
     build_kernels()
-    config = Configuration.create(**CONFIG)
+    configs = {
+        "headline": Configuration.create(**CONFIG),
+        "B": Configuration.create(**CONFIG_B),
+        "wide": Configuration.create(**CONFIG_WIDE),
+    }
+    config = configs["headline"]
 
-    log("-- kernels vs plain versions on the card (headline DD inputs)")
+    log("-- kernels vs plain versions on the card (inputs of each path)")
     catalogs, _ = make_catalogs()
-    kernel_results = kernels_vs_plain(catalogs, config)
+    kernel_results = kernels_vs_plain(card, catalogs, configs)
     del catalogs
 
     log("-- main path")
-    cuda_paircount.reset_launch_counts()
+    launches_total: dict[str, int] = {}
     torch.cuda.reset_peak_memory_stats()
     t_path = time.perf_counter()
     catalogs, stages = make_catalogs()
     reference, unknown, randoms = catalogs
     t0 = time.perf_counter()
-    (wsp,) = crosscorrelate(
-        config, reference, unknown, ref_rand=randoms, device="cuda"
+    (wsp,), launches = run_path(
+        "main (crosscorrelate)",
+        lambda: crosscorrelate(
+            config, reference, unknown, ref_rand=randoms, device="cuda"
+        ),
+        {"paircount_partials": 2, "paircount_segment_sum": 2},
+        launches_total,
     )
     stages["crosscorrelate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -334,89 +738,185 @@ def main() -> None:
     torch.cuda.synchronize()
     stages["from_corrfuncs"] = time.perf_counter() - t0
     t_path = time.perf_counter() - t_path
-    launches = dict(cuda_paircount.launch_counts)
     log(f"main path (cold) {t_path:.2f} s: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in stages.items()))
-    log(f"kernel launches on the main path: {launches}")
-    for name, count in launches.items():
-        # one launch per count (DD, RD) for up to 16 edges
-        check(count >= 2, f"{name} launched {count} times, expected DD and RD")
-    for field in ("data", "error", "covariance"):
-        check(bool(np.all(np.isfinite(getattr(nz, field)))),
-              f"n(z) {field} is not finite")
-    check(nz.data.shape == (NUM_BINS,), "n(z) has the wrong shape")
-    check(nz.samples.shape == (NUM_PATCHES, NUM_BINS), "wrong sample shape")
+    check_nz(nz, "main path")
     log(f"n(z) head: {np.array2string(nz.data[:4], precision=4)}")
+
+    log("-- w_ss path (autocorrelate, Landy-Szalay)")
+    (wss,), _ = run_path(
+        "w_ss (autocorrelate)",
+        lambda: autocorrelate(config, reference, randoms, device="cuda"),
+        {"paircount_partials_binned": 3, "paircount_segment_sum": 3},
+        launches_total,
+    )
+    check(wss.get_estimator().name == "LS", "w_ss does not use Landy-Szalay")
+    nz_ss = RedshiftData.from_corrfuncs(wsp, ref_corr=wss)
+    check_nz(nz_ss, "w_sp + w_ss")
+    log(f"n(z) with ref_corr head: {np.array2string(nz_ss.data[:4], precision=4)}")
+
+    log("-- config B path (3 scales, rweight=-1, resolution 32: direct counting)")
+    config_b = configs["B"]
+
+    def direct_path():
+        return (
+            crosscorrelate(config_b, reference, unknown, ref_rand=randoms, device="cuda"),
+            autocorrelate(config_b, reference, randoms, device="cuda"),
+        )
+
+    (wsp_b, wss_b), _ = run_path(
+        "config B", direct_path,
+        {"paircount_partials_direct": 2, "paircount_partials_direct_binned": 3},
+        launches_total,
+    )
+    check(len(wsp_b) == 3 and len(wss_b) == 3, "config B has not 3 scales")
+    for s, (a, b) in enumerate(zip(wsp_b, wss_b)):
+        check_nz(RedshiftData.from_corrfuncs(a, ref_corr=b), f"config B scale {s}")
+
+    log("-- scalar path (kappa: signed weights)")
+
+    def scalar_path():
+        return (
+            crosscorrelate_scalar(config, reference, unknown, unk_rand=randoms, device="cuda"),
+            autocorrelate_scalar(config, reference, device="cuda"),
+        )
+
+    ((kn,), (kk,)), scalar_launches = run_path(
+        "scalar", scalar_path,
+        {"paircount_partials": 4, "paircount_partials_binned": 2},
+        launches_total,
+    )
+    for label, corr in (("kn", kn), ("kk", kk)):
+        data = corr.sample()
+        check(corr.get_estimator().name == "SC", f"{label} estimator")
+        check(bool(np.all(np.isfinite(data.data))), f"{label} samples not finite")
+
+    log("-- wide-grid path (edges up to 1.35 rad: arcsine index)")
+    config_wide = configs["wide"]
+
+    def wide_path():
+        return (
+            crosscorrelate(config_wide, reference, unknown, ref_rand=randoms, device="cuda"),
+            autocorrelate(config_wide, reference, randoms, device="cuda"),
+        )
+
+    (wsp_w, wss_w), _ = run_path(
+        "wide grid", wide_path,
+        {"paircount_partials_arcsine": 2, "paircount_partials_arcsine_binned": 3},
+        launches_total,
+    )
+    for s, (a, b) in enumerate(zip(wsp_w, wss_w)):
+        for label, corr in (("w_sp", a), ("w_ss", b)):
+            check(bool(np.all(np.isfinite(corr.sample().data))),
+                  f"wide grid {label} scale {s} not finite")
+    # against the union-edge cumulative counts of the same pairs (K1.1 /
+    # K1.2 with 28 edges), the JAX package's wide-grid tolerance 5e-4
+    links_w = PatchLinkage.from_catalogs(config_wide, *catalogs)
+    for count in ("cross DD", "auto DD"):
+        tiles1, tiles2, pairs = engine_inputs(links_w, catalogs, count)
+        table, _, direct, mapper = links_w.engine_table()
+        via_direct = mapper.counts_to_scales(count_pairs_tiles(
+            tiles1, tiles2, pairs, table, device="cuda", direct=direct
+        ))
+        via_cumulative = links_w.edges.counts_to_scales(count_pairs_tiles(
+            tiles1, tiles2, pairs, links_w.edges.chord2_table, device="cuda"
+        ))
+        err = max(
+            np.abs(via_direct[s] - via_cumulative[s]).max()
+            / np.abs(via_cumulative[s]).max()
+            for s in range(len(via_direct))
+        )
+        log(f"wide grid {count}: direct (arcsine) vs union-edge cumulative, "
+            f"per-scale max|err|/max {err:.3e}")
+        check(err <= 5e-4, f"wide grid {count}: direct off the cumulative counts")
 
     log("-- float64 oracle")
     oracle_check(catalogs, config, wsp)
+    wss_oracle_check(catalogs, config, wss)
+    direct_oracle_check(catalogs, config_b, wsp_b, wss_b)
+    scalar_oracle_check(catalogs, config, kn, kk)
 
     log("-- timing")
-
-    def run_measurement():
-        (w,) = crosscorrelate(
-            config, reference, unknown, ref_rand=randoms, device="cuda"
-        )
-        return RedshiftData.from_corrfuncs(w)
-
-    run_measurement()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(WARM_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_measurement()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    warm = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
-    links = PatchLinkage.from_catalogs(config, reference, unknown, randoms)
-    work = {
-        "DD": links.engine_work_stats(reference, unknown),
-        "RD": links.engine_work_stats(randoms, unknown),
+    paths = {
+        "main (crosscorrelate + n(z))": (
+            lambda: RedshiftData.from_corrfuncs(crosscorrelate(
+                config, reference, unknown, ref_rand=randoms, device="cuda"
+            )[0]),
+            config, ["cross DD", "cross RD"], WARM_RUNS,
+        ),
+        "w_ss (autocorrelate + n(z) with ref_corr)": (
+            lambda: RedshiftData.from_corrfuncs(
+                wsp, ref_corr=autocorrelate(
+                    config, reference, randoms, device="cuda"
+                )[0],
+            ),
+            config, ["auto DD", "auto DR", "auto RR"], WARM_RUNS,
+        ),
+        "config B (crosscorrelate + autocorrelate + 3 n(z))": (
+            lambda: [
+                RedshiftData.from_corrfuncs(a, ref_corr=b)
+                for a, b in zip(*direct_path())
+            ],
+            config_b,
+            ["cross DD", "cross RD", "auto DD", "auto DR", "auto RR"],
+            WARM_RUNS,
+        ),
+        "scalar (crosscorrelate_scalar + autocorrelate_scalar)": (
+            lambda: [corr[0].sample() for corr in scalar_path()],
+            config,
+            ["scalar kn DD", "cross DD", "scalar kn DR", "cross DR",
+             "scalar kk DD", "auto DD"],
+            WARM_RUNS,
+        ),
+        "wide grid (crosscorrelate + autocorrelate)": (
+            wide_path, config_wide,
+            ["cross DD", "cross RD", "auto DD", "auto DR", "auto RR"], 3,
+        ),
     }
-    candidates = sum(w["candidate_pairs"] for w in work.values())
-    log(f"[{card}] warm measurement (median of {WARM_RUNS}): {warm:.4f} s "
-        f"[{min(times):.4f}, {max(times):.4f}], {candidates:.4e} candidate "
-        f"pairs -> {candidates / warm:.4e} pairs/s, peak device memory "
-        f"{peak / 2**20:.1f} MiB")
+    torch.cuda.reset_peak_memory_stats()
+    for label, (fn, path_config, counts, runs) in paths.items():
+        warm, lo, hi = warm_time(fn, runs)
+        links = PatchLinkage.from_catalogs(path_config, *catalogs)
+        candidates = 0
+        for count in counts:
+            rows, cols, binned2, mode = COUNTS[count]
+            candidates += links.engine_work_stats(
+                catalogs[rows], None if cols is None else catalogs[cols],
+                binned2=binned2, mode=mode,
+            )["candidate_pairs"]
+        log(f"[{card}] {label}: warm {warm:.4f} s (median of {runs}) "
+            f"[{lo:.4f}, {hi:.4f}], {candidates:.4e} candidate pairs -> "
+            f"{candidates / warm:.4e} pairs/s")
+        engine_ms = engine_times(card, label, links, catalogs, counts)
+        log(f"[{card}] {label}: engine kernels {engine_ms:.3f} ms of the "
+            f"{warm * 1e3:.3f} ms warm measurement")
+    log(f"peak device memory over the timed paths "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    engine_ms = 0.0
-    for name, rows in (("DD", reference), ("RD", randoms)):
-        tiles1, tiles2, pairs = links._build_engine_inputs(
-            rows, unknown, mode="nn"
-        )
-
-        def count(backend):
-            return count_pairs_tiles(
-                tiles1, tiles2, pairs, links.edges.chord2_table,
-                backend=backend, device="cuda", defer=True,
-                chunk_size=PLAIN_CHUNK,
-            )
-
-        kernel_ms = cuda_ms(lambda: count("cuda"), 3)
-        plain_ms = cuda_ms(lambda: count("torch"), 1)
-        engine_ms += kernel_ms
-        log(f"[{card}] {name} count ({work[name]['tile_pairs']} tile pairs, "
-            f"{work[name]['candidate_pairs']:.4e} candidate pairs): kernels "
-            f"{kernel_ms:.3f} ms ({work[name]['candidate_pairs'] / (kernel_ms * 1e-3):.4e} "
-            f"pairs/s), plain PyTorch engine {plain_ms:.3f} ms")
-    log(f"[{card}] engine kernels {engine_ms:.3f} ms of the {warm * 1e3:.3f} ms "
-        "warm measurement")
-
-    kernels = [
-        {
-            "name": name,
+    # K1.5 is K1.1 / K1.2 on signed weights: its launches are those of the
+    # scalar path (half of them the kappa counts, half the nn normalisation)
+    for key, base in (
+        ("paircount_partials_signed", "paircount_partials"),
+        ("paircount_partials_binned_signed", "paircount_partials_binned"),
+    ):
+        launches_total[key] = scalar_launches.get(base, 0)
+    kernels = []
+    for key, result in kernel_results.items():
+        check(launches_total.get(key, 0) > 0, f"{key} never launched on a path")
+        kernels.append({
+            "name": key,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": launches[name],
+            "launches": launches_total[key],
             "max_abs_err": result["err"][0],
             "ms": result["ms"],
             "plain_ms": result["plain_ms"],
-        }
-        for name, result in kernel_results.items()
-    ]
+            "bound_ms": result["bound_ms"],
+            "bound_by": result["bound_by"],
+            "library_ms": result["library_ms"],
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

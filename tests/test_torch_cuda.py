@@ -2,13 +2,20 @@
 
 These tests need an NVIDIA card with the CUDA toolkit (the kernels are
 compiled with ``nvcc`` at first use) and skip without one. Run them on the
-card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.
+card with ``python -m pytest tests/test_torch_cuda.py -m gpu``. Every
+variant of kernel A is covered: cumulative (K1.1) and binned columns
+(K1.2), direct counting with the small-angle (K1.3) and arcsine (K1.4)
+index, each with unbinned and binned columns, and signed weights (K1.5).
+Cumulative variants agree with the plain version to 1e-6, direct ones to
+1e-5: a 1-ulp difference in ``logf`` moves a pair within ~1e-7 of a
+sub-edge into the neighbouring sub-interval.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
 from yet_another_wizz_tpu_torch.ops.linkage import (
     TilePairs,
@@ -20,6 +27,7 @@ from yet_another_wizz_tpu_torch.ops.paircount import (
     partial_counts_torch,
     segment_sum_torch,
 )
+from yet_another_wizz_tpu_torch.ops.thresholds import build_angular_edges
 from yet_another_wizz_tpu_torch.ops.tiles import build_tile_set
 
 pytestmark = pytest.mark.gpu
@@ -67,9 +75,9 @@ def cross_inputs(rng, *, num_bins=3, num_patches=5, tile_size=512,
     return tiles1, tiles2, pairs, table
 
 
-def assert_close(actual, desired):
-    atol = 1e-6 * desired.abs().max().item()
-    torch.testing.assert_close(actual, desired, rtol=1e-6, atol=atol)
+def assert_close(actual, desired, rtol=1e-6):
+    atol = rtol * desired.abs().max().item()
+    torch.testing.assert_close(actual, desired, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("num_edges", [2, 5, 19])
@@ -121,9 +129,8 @@ def test_empty_slots_are_zero_and_launches_counted(device):
     counts = count_pairs_tiles(
         tiles1, tiles2, crafted, table, backend="cuda", device=device
     )
-    assert cuda_paircount.launch_counts == {
-        "paircount_partials": 1, "paircount_segment_sum": 1,
-    }
+    launched = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    assert launched == {"paircount_partials": 1, "paircount_segment_sum": 1}
     assert np.all(counts[pairs.num_slots:] == 0.0)
     plain = count_pairs_tiles(
         tiles1, tiles2, pairs, table, backend="torch", device=device
@@ -131,4 +138,97 @@ def test_empty_slots_are_zero_and_launches_counted(device):
     np.testing.assert_allclose(
         counts[: pairs.num_slots], plain,
         rtol=1e-6, atol=1e-6 * np.abs(plain).max(),
+    )
+
+
+VARIANTS = {
+    # name: (scales of the direct grid or None, unit)
+    "cumulative": None,
+    "direct": (([0.05, 0.12, 0.3], [0.2, 0.5, 1.0]), "deg"),
+    "arcsine": (([0.05, 0.4], [0.5, 1.35]), "rad"),
+}
+
+
+def variant_inputs(rng, variant, cols_binned, *, num_bins=3, num_patches=5):
+    """Tiles with signed row weights, binned or unbinned columns, and the
+    table of the variant."""
+    xyz1, _, z1 = cap_catalog(rng, 5000, num_bins)
+    xyz2, w2, z2 = cap_catalog(rng, 7000, num_bins)
+    w1 = rng.normal(0.1, 0.3, len(xyz1))  # kappa-like: signed
+    centers = xyz1[rng.choice(len(xyz1), num_patches, replace=False)]
+    patch1 = np.argmax(xyz1 @ centers.T, axis=1)
+    patch2 = np.argmax(xyz2 @ centers.T, axis=1)
+    tiles1 = build_tile_set(
+        xyz1, patch1, num_patches, weights=w1, zbins=z1, num_bins=num_bins,
+    )
+    extra = dict(zbins=z2, num_bins=num_bins) if cols_binned else {}
+    tiles2 = build_tile_set(xyz2, patch2, num_patches, weights=w2, **extra)
+    if VARIANTS[variant] is None:
+        _, _, _, table = cross_inputs(rng, num_bins=num_bins, num_edges=3)
+        direct = None
+        max_angle = float(np.max(2 * np.arcsin(np.sqrt(table) / 2)))
+    else:
+        (rmin, rmax), unit = VARIANTS[variant]
+        edges = build_angular_edges(
+            new_scales(rmin, rmax, unit=unit), np.linspace(0.3, 0.8, num_bins),
+            weight_scale=-1.0, weight_res=24, counting="direct",
+        )
+        table = edges.direct.combined_table()
+        direct = edges.direct.spec
+        assert direct[3] is (variant == "direct")
+        max_angle = edges.max_angle
+    radii = np.full(num_patches, np.deg2rad(25.0))
+    linkage = build_linkage(centers, radii, max_angle * 1.000001)
+    pairs = build_tile_pairs(tiles1, tiles2, linkage, auto=False)
+    return tiles1, tiles2, pairs, table, direct
+
+
+@pytest.mark.parametrize("cols_binned", [False, True], ids=["cross", "binned"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variants_match_plain_versions(device, variant, cols_binned):
+    rng = np.random.default_rng(11)
+    tiles1, tiles2, pairs, table, direct = variant_inputs(
+        rng, variant, cols_binned
+    )
+    assert pairs.num_pairs > 0
+    lanes1 = tiles1.device_data(device)
+    lanes2 = tiles2.device_data(device)
+    table_dev = torch.from_numpy(table).to(device)
+    k = slice(0, 512)
+    tile1 = torch.from_numpy(pairs.tile1[k]).to(device)
+    tile2 = torch.from_numpy(pairs.tile2[k]).to(device)
+    kwargs = dict(cols_binned=cols_binned, direct=direct)
+
+    cuda_paircount.reset_launch_counts()
+    first = cuda_paircount.paircount_partials(
+        lanes1, lanes2, tile1, tile2, table_dev, **kwargs
+    )
+    second = cuda_paircount.paircount_partials(
+        lanes1, lanes2, tile1, tile2, table_dev, **kwargs
+    )
+    plain = partial_counts_torch(
+        lanes1, lanes2, tile1.long(), tile2.long(), table_dev, **kwargs
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    name = cuda_paircount.variant_name(cols_binned, direct)
+    assert cuda_paircount.launch_counts[name] == 2
+    assert plain.abs().max() > 0 and (plain < 0).any()  # signed weights
+    assert_close(first, plain, rtol=1e-6 if direct is None else 1e-5)
+
+
+def test_binned_direct_engine_matches_plain_engine(device):
+    tiles1, tiles2, pairs, table, direct = variant_inputs(
+        np.random.default_rng(12), "direct", True
+    )
+    kernel = count_pairs_tiles(
+        tiles1, tiles2, pairs, table, backend="cuda", device=device,
+        direct=direct,
+    )
+    plain = count_pairs_tiles(
+        tiles1, tiles2, pairs, table, backend="torch", device=device,
+        direct=direct,
+    )
+    np.testing.assert_allclose(
+        kernel, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max()
     )

@@ -23,6 +23,7 @@ SLICE_MODULES = [
     "yet_another_wizz_tpu_torch._native",
     "yet_another_wizz_tpu_torch.ops.kmeans",
     "yet_another_wizz_tpu_torch.catalog",
+    "yet_another_wizz_tpu_torch.ops.gweight",
     "yet_another_wizz_tpu_torch.ops.thresholds",
     "yet_another_wizz_tpu_torch.ops.tiles",
     "yet_another_wizz_tpu_torch.ops.linkage",
@@ -91,9 +92,14 @@ def test_cuda_backend_refuses_cpu_tensors():
         count_pairs_tiles(
             tiles1, tiles2, pairs, table, backend="cuda", device="cpu"
         )
-    for unsupported in (dict(audit=True), dict(direct=(10, 0, 0)),
-                        dict(mesh=object())):
+    for unsupported in (dict(audit=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             count_pairs_tiles(
                 tiles1, tiles2, pairs, table, device="cpu", **unsupported
             )
+    # direct counting runs; a table without room for its parameter block
+    # has no counting edges
+    with pytest.raises(ValueError, match="no counting edges"):
+        count_pairs_tiles(
+            tiles1, tiles2, pairs, table, device="cpu", direct=(10, 0, 0)
+        )

@@ -1,9 +1,12 @@
 """yet_another_wizz_tpu_torch: clustering-redshift estimation in PyTorch.
 
 The PyTorch + CUDA counterpart of ``yet_another_wizz_tpu``. It runs the
-cross-correlation measurement (``crosscorrelate`` with reference randoms)
-and jackknife n(z) recovery (``RedshiftData.from_corrfuncs``) with the same
-host pipeline as the JAX package: patch-resolved catalogs, Morton-sorted
+cross- and autocorrelation measurements (``crosscorrelate``,
+``autocorrelate`` with Landy-Szalay, their scalar-field variants
+``crosscorrelate_scalar`` / ``autocorrelate_scalar``, optionally with
+separation weighting) and jackknife n(z) recovery
+(``RedshiftData.from_corrfuncs``) with the same host pipeline as the JAX
+package: patch-resolved catalogs, Morton-sorted
 point tiles, a cap-pruned tile-pair list, and the float64 estimators. The
 pair-count engine is a hand-written CUDA kernel
 (:mod:`yet_another_wizz_tpu_torch.ops.cuda_paircount`) for tensors on a
@@ -41,8 +44,11 @@ __all__ = [
     "RedshiftData",
     "__version__",
     "__version_tuple__",
+    "autocorrelate",
+    "autocorrelate_scalar",
     "cosmology_is_equal",
     "crosscorrelate",
+    "crosscorrelate_scalar",
     "get_default_cosmology",
     "new_scales",
 ]
@@ -62,12 +68,13 @@ def __getattr__(name):
         from yet_another_wizz_tpu_torch import correlation
 
         return getattr(correlation, name)
-    if name == "crosscorrelate":
-        from yet_another_wizz_tpu_torch.correlation.measurements import (
-            crosscorrelate,
-        )
+    if name in (
+        "autocorrelate", "autocorrelate_scalar", "crosscorrelate",
+        "crosscorrelate_scalar",
+    ):
+        from yet_another_wizz_tpu_torch.correlation import measurements
 
-        return crosscorrelate
+        return getattr(measurements, name)
     if name == "RedshiftData":
         from yet_another_wizz_tpu_torch.redshifts import RedshiftData
 

@@ -31,6 +31,8 @@ from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE, build_tile_s
 
 if TYPE_CHECKING:
     from collections.abc import Iterator
+
+    import torch
     from numpy.typing import ArrayLike, NDArray
     from typing_extensions import Self
 
@@ -109,9 +111,11 @@ def _resolve_patch_assignment(
     patch_ids,
     patch_num,
     probe_size: int,
+    device: torch.device | str,
 ) -> tuple[NDArray, NDArray]:
     """Determine patch ids and centers using the reference's priority:
-    explicit centers > explicit ids > kmeans-generated centers."""
+    explicit centers > explicit ids > kmeans-generated centers. Large
+    catalogs are assigned to their centers on ``device``."""
     if patch_centers is not None:
         if isinstance(patch_centers, Catalog):
             centers_xyz = patch_centers.get_centers().to_3d()
@@ -128,7 +132,7 @@ def _resolve_patch_assignment(
                 centers_xyz = radec_to_xyz(
                     centers_xyz[:, 0], centers_xyz[:, 1]
                 )
-        ids = assign_patches(xyz, centers_xyz)
+        ids = assign_patches(xyz, centers_xyz, device=device)
         return ids, centers_xyz
 
     if patch_ids is not None:
@@ -151,9 +155,10 @@ def _resolve_patch_assignment(
     if patch_num is not None:
         logger.info("computing %d patch centers with kmeans", patch_num)
         centers_xyz = kmeans_patch_centers(
-            xyz, patch_num, weights=weights, probe_size=probe_size
+            xyz, patch_num, weights=weights, probe_size=probe_size,
+            device=device,
         )
-        ids = assign_patches(xyz, centers_xyz)
+        ids = assign_patches(xyz, centers_xyz, device=device)
         return ids, centers_xyz
 
     raise ValueError(
@@ -201,10 +206,15 @@ class Catalog(Mapping):
         patch_num: int | None = None,
         probe_size: int = DEFAULT_PROBE_SIZE,
         cache_directory=None,
+        device: torch.device | str = "cuda",
         **_ignored,
     ) -> Self:
         """Create a catalog from per-column arrays (the in-memory
-        constructor). Writing a ``cache_directory`` is not ported yet."""
+        constructor). Catalogs large enough for the device patch
+        assignment (:data:`~yet_another_wizz_tpu_torch.ops.kmeans.
+        DEVICE_ASSIGN_THRESHOLD`) run it on ``device``, which raises when it
+        is a CUDA device and CUDA is not available. Writing a
+        ``cache_directory`` is not ported yet."""
         if cache_directory is not None:
             raise NotImplementedError("catalog caches are not ported yet")
         chunk = DataChunk.create(
@@ -224,6 +234,7 @@ class Catalog(Mapping):
             patch_ids=patch_ids,
             patch_num=patch_num,
             probe_size=probe_size,
+            device=device,
         )
         new._patch_ids = np.asarray(ids, dtype=np.int32)
         new.num_patches = len(centers_xyz)

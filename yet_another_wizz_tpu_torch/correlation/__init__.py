@@ -7,7 +7,12 @@ from yet_another_wizz_tpu_torch.correlation.corrfunc import (
     ScalarCorrFunc,
     load_corrfunc,
 )
-from yet_another_wizz_tpu_torch.correlation.measurements import crosscorrelate
+from yet_another_wizz_tpu_torch.correlation.measurements import (
+    autocorrelate,
+    autocorrelate_scalar,
+    crosscorrelate,
+    crosscorrelate_scalar,
+)
 from yet_another_wizz_tpu_torch.correlation.paircounts import (
     NormalisedCounts,
     NormalisedScalarCounts,
@@ -24,6 +29,9 @@ __all__ = [
     "PatchedSumWeights",
     "SampledData",
     "ScalarCorrFunc",
+    "autocorrelate",
+    "autocorrelate_scalar",
     "crosscorrelate",
+    "crosscorrelate_scalar",
     "load_corrfunc",
 ]

@@ -1,10 +1,12 @@
-"""Cross-correlation measurement.
+"""Cross- and autocorrelation measurement functions.
 
 Ported from the JAX package's ``correlation/measurements.py`` for the
-in-memory engine path: :func:`crosscorrelate`, the patch-consistency
-checks, and the :class:`PatchLinkage` scheduling helper, mirroring the
-reference ``yaw.correlation.measurements``
-(yaw/correlation/measurements.py:65-794).
+in-memory engine path: :func:`autocorrelate`, :func:`crosscorrelate` and
+their scalar-field variants, the patch-consistency checks, and the
+:class:`PatchLinkage` scheduling helper, mirroring the reference
+``yaw.correlation.measurements`` (yaw/correlation/measurements.py:65-794),
+including the autocorrelation conventions (same-patch counts halved, only
+ordered patch pairs with ``id2 >= id1``).
 
 Execution model: the linked patch grid is expanded into a tile-pair list
 and pushed through the pair-count engine (:mod:`yet_another_wizz_tpu_torch.ops`)
@@ -15,11 +17,10 @@ first result is read: each result is copied to pinned host memory without
 blocking, and the host waits for one count at a time while it
 post-processes the previous one.
 
-Not ported yet: ``autocorrelate`` and the scalar (kappa) measurements, the
-blocked out-of-core path (``max_resident_patches``), multi-device
-execution (``mesh``, ``data_sharding``), the exact-boundary ``audit``, and
-equal-bin counting (``binned2=True``). Those parameters raise
-``NotImplementedError`` when given a value other than their default.
+Not ported yet: the blocked out-of-core path (``max_resident_patches``),
+multi-device execution (``mesh``, ``data_sharding``) and the
+exact-boundary ``audit``. Those parameters raise ``NotImplementedError``
+when given a value other than their default.
 """
 
 from __future__ import annotations
@@ -34,9 +35,13 @@ from yet_another_wizz_tpu_torch.catalog.catalog import (
     Catalog,
     InconsistentPatchesError,
 )
-from yet_another_wizz_tpu_torch.correlation.corrfunc import CorrFunc
+from yet_another_wizz_tpu_torch.correlation.corrfunc import (
+    CorrFunc,
+    ScalarCorrFunc,
+)
 from yet_another_wizz_tpu_torch.correlation.paircounts import (
     NormalisedCounts,
+    NormalisedScalarCounts,
     PatchedCounts,
     PatchedSumWeights,
 )
@@ -64,7 +69,11 @@ if TYPE_CHECKING:
 
 __all__ = [
     "PatchLinkage",
+    "autocorrelate",
+    "autocorrelate_scalar",
+    "compute_scalar_normalisation",
     "crosscorrelate",
+    "crosscorrelate_scalar",
 ]
 
 logger = logging.getLogger(__name__)
@@ -241,12 +250,14 @@ class PatchLinkage:
         data_sharding: str = "replicated",
         _defer: bool = False,
     ) -> list[NormalisedCounts]:
-        """Count pairs between two catalogs, one :class:`NormalisedCounts`
-        per scale, on ``device``.
+        """Count pairs between two catalogs (or within one for an
+        autocorrelation), one :class:`NormalisedCounts` per scale, on
+        ``device``.
 
-        Only binned rows against unbinned columns are ported: an
-        autocorrelation (no second catalog) and ``binned2=True`` raise
-        ``NotImplementedError``.
+        ``binned2`` controls whether the second catalog is resolved into
+        redshift bins (requiring equal bins on both sides of a pair); by
+        default only autocorrelations bin both sides, mirroring the
+        reference's binned/unbinned tree building.
 
         ``_defer`` (internal) returns a zero-argument callable producing
         the result instead: the device work and the copy of its result to
@@ -260,17 +271,18 @@ class PatchLinkage:
         from yet_another_wizz_tpu_torch.utils.misc import thread_limit
 
         _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
-        if len(optional_catalog) == 0 or binned2:
-            raise NotImplementedError(
-                "equal-bin counting (autocorrelation, binned2=True) is not "
-                "ported yet"
-            )
         if count_type_info is not None:
             logger.info("counting %s from patch pairs", count_type_info)
 
+        auto = len(optional_catalog) == 0
+        catalog1 = main_catalog
+        catalog2 = main_catalog if auto else optional_catalog[0]
+        if binned2 is None:
+            binned2 = auto
+
         with thread_limit(max_workers):
             finalize_engine = self._run_engine(
-                main_catalog, optional_catalog[0], mode=mode,
+                catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
                 backend=backend, device=device,
             )
 
@@ -296,48 +308,111 @@ class PatchLinkage:
             return (lambda: result) if kwargs.get("_defer") else result
         return self.count_pairs(main_catalog, *optional_catalog, **kwargs)
 
-    def _build_engine_inputs(self, catalog1, catalog2, *, mode):
+    def count_scalar_pairs(
+        self,
+        main_catalog: Catalog,
+        *optional_catalog: Catalog,
+        mode: str = "kn",
+        **kwargs,
+    ) -> list[NormalisedScalarCounts]:
+        """Scalar-field pair counts: the requested kappa mode normalised by
+        a plain number-count pass.
+
+        Both passes are queued on the device before either result is
+        fetched (the same defer/finalize overlap the measurement
+        functions use across count types)."""
+        outer_defer = kwargs.pop("_defer", False)
+        count_type_info = kwargs.pop("count_type_info", None)
+        kappa_deferred = self.count_pairs(
+            main_catalog, *optional_catalog, mode=mode, **kwargs,
+            count_type_info=count_type_info, _defer=True,
+        )
+        number_deferred = self.count_pairs(
+            main_catalog, *optional_catalog, mode="nn", **kwargs,
+            count_type_info=(
+                None if count_type_info is None
+                else f"{count_type_info} normalisation (nn)"
+            ),
+            _defer=True,
+        )
+
+        def finish() -> list[NormalisedScalarCounts]:
+            return [
+                NormalisedScalarCounts(kk.counts, nn.counts)
+                for kk, nn in zip(kappa_deferred(), number_deferred())
+            ]
+
+        return finish if outer_defer else finish()
+
+    def _build_engine_inputs(
+        self, catalog1, catalog2, *, auto=False, binned2=False, mode="nn"
+    ):
         """The tile sets and pruned tile-pair list exactly as the engine
-        will process them (layout choice and per-tile pruning included)."""
+        will process them (layout choice and per-tile pruning included);
+        the defaults are a crosscorrelation count."""
         binning = self.config.binning.binning
         num_bins = len(binning)
 
         tiles1 = catalog1.get_tiles(
             binning, mode=mode[0],
             layout=_preferred_tile_layout(
-                catalog1, num_bins, self.edges, equal_bin_counting=False
+                catalog1, num_bins, self.edges, equal_bin_counting=binned2
             ),
         )
-        tiles2 = catalog2.get_tiles(None, mode=mode[1], layout="spatial")
+        tiles2 = catalog2.get_tiles(
+            binning if binned2 else None, mode=mode[1],
+            layout=(
+                _preferred_tile_layout(
+                    catalog2, num_bins, self.edges, equal_bin_counting=True
+                )
+                if binned2
+                else "spatial"
+            ),
+        )
         pairs = build_tile_pairs(
-            tiles1, tiles2, self.linkage, auto=False,
+            tiles1, tiles2, self.linkage, auto=auto,
             bin_max_angles=self.edges.edges.max(axis=1),
         )
         return tiles1, tiles2, pairs
 
     def num_candidate_pairs(
-        self, catalog1: Catalog, catalog2: Catalog, *, mode: str = "nn"
+        self,
+        catalog1: Catalog,
+        catalog2: Catalog | None = None,
+        *,
+        binned2: bool | None = None,
+        mode: str = "nn",
     ) -> int:
         """Candidate pairs the engine actually evaluates for this count:
         ``num_tile_pairs * tile_size**2`` of the SAME pruned tile-pair list
         the measurement processes (tile layout choice and per-tile
         redshift-bin pruning included) — the honest work statistic for
         throughput reporting."""
-        return self.engine_work_stats(catalog1, catalog2, mode=mode)[
-            "candidate_pairs"
-        ]
+        return self.engine_work_stats(
+            catalog1, catalog2, binned2=binned2, mode=mode
+        )["candidate_pairs"]
 
     def engine_work_stats(
-        self, catalog1: Catalog, catalog2: Catalog, *, mode: str = "nn"
+        self,
+        catalog1: Catalog,
+        catalog2: Catalog | None = None,
+        *,
+        binned2: bool | None = None,
+        mode: str = "nn",
     ) -> dict:
         """Work statistics of one count for performance models:
         ``candidate_pairs`` as in :meth:`num_candidate_pairs`,
         ``tile_pairs`` (the length of the pair list, one block of kernel A
         each), ``slot_transitions`` (changes of the output slot along the
         slot-sorted list) and ``fetch_bytes`` (the float32 ``(num_slots, B,
-        E)`` result copied to the host)."""
+        E)`` result copied to the host). ``catalog2=None`` is an
+        autocorrelation count."""
+        auto = catalog2 is None
+        if binned2 is None:
+            binned2 = auto
         tiles1, _, pairs = self._build_engine_inputs(
-            catalog1, catalog2, mode=mode
+            catalog1, catalog1 if auto else catalog2,
+            auto=auto, binned2=binned2, mode=mode,
         )
         transitions = 0
         if pairs.num_pairs:
@@ -351,33 +426,51 @@ class PatchLinkage:
             "fetch_bytes": int(pairs.num_slots) * num_bins * num_edges * 4,
         }
 
-    def _run_engine(self, catalog1, catalog2, *, mode, backend, device):
+    def engine_table(self, backend: str = "auto"):
+        """``(table, edges_radian, direct_spec, mapper)`` of the engine:
+        the direct-mode tables when the edges carry them, except for the
+        ``oracle`` backend, which needs the union-edge cumulative
+        representation (both are the same in float64, see
+        :class:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges`)."""
+        direct = self.edges.direct
+        if direct is not None and backend != "oracle":
+            return direct.combined_table(), direct.edges, direct.spec, direct
+        return self.edges.chord2_table, self.edges.edges, None, self.edges
+
+    def _run_engine(
+        self, catalog1, catalog2, *, auto, binned2, mode, backend, device
+    ):
         binning = self.config.binning.binning
         num_bins = len(binning)
         num_patches = catalog1.num_patches
 
         tiles1, tiles2, pairs = self._build_engine_inputs(
-            catalog1, catalog2, mode=mode
+            catalog1, catalog2, auto=auto, binned2=binned2, mode=mode
         )
         logger.debug(
             "processing %d tile pairs in %d patch pairs",
             pairs.num_pairs,
             pairs.num_slots,
         )
+        table, edges_radian, direct_spec, mapper = self.engine_table(backend)
         cumulative = count_pairs_tiles(
-            tiles1, tiles2, pairs, self.edges.chord2_table,
-            backend=backend, device=device, edges_radian=self.edges.edges,
-            defer=True,
+            tiles1, tiles2, pairs, table,
+            backend=backend, device=device, edges_radian=edges_radian,
+            defer=True, direct=direct_spec,
         )
         fetch = _copy_to_host(cumulative)
 
         def finalize():
-            per_scale = self.edges.counts_to_scales(fetch())  # (S, slots, B)
+            per_scale = mapper.counts_to_scales(fetch())  # (S, slots, B)
             slot_ids1 = pairs.slot_patches[:, 0]
             slot_ids2 = pairs.slot_patches[:, 1]
+            if auto:
+                same = slot_ids1 == slot_ids2
+                per_scale[:, same, :] *= 0.5  # ordered pairs double-count
+
             counts = []
             for scale_values in per_scale:
-                patched = PatchedCounts.zeros(binning, num_patches, auto=False)
+                patched = PatchedCounts.zeros(binning, num_patches, auto=auto)
                 patched.counts[:, slot_ids1, slot_ids2] = scale_values.T
                 counts.append(patched)
 
@@ -385,11 +478,69 @@ class PatchLinkage:
                 binning,
                 tiles1.bin_sum_weights(num_bins),
                 tiles2.bin_sum_weights(num_bins),
-                auto=False,
+                auto=auto,
             )
             return counts, sum_weights
 
         return finalize
+
+
+def autocorrelate(
+    config: Configuration,
+    data: Catalog,
+    random: Catalog,
+    *,
+    count_rr: bool = True,
+    backend: str = "auto",
+    device: torch.device | str = "cuda",
+    max_resident_patches: int | None = None,
+    progress: bool = False,
+    max_workers: int | None = None,
+    audit: bool = False,
+    mesh=None,
+    data_sharding: str = "replicated",
+) -> list[CorrFunc]:
+    """Measure the angular autocorrelation amplitude of a catalog in bins
+    of redshift.
+
+    Returns one :class:`CorrFunc` per configured scale, holding DD, DR and
+    (optionally) RR pair counts; with RR present the Landy-Szalay estimator
+    becomes available. The pair counts run on ``device``, as in
+    :func:`crosscorrelate`.
+    """
+    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    device = resolve_device(device)
+    ensure_unique_catalogs(data, random)
+    kwargs = dict(
+        progress=progress, max_workers=max_workers, backend=backend,
+        device=device,
+    )
+
+    logger.info(
+        "computing auto-correlation from DD, DR%s", ", RR" if count_rr else ""
+    )
+    links = PatchLinkage.from_catalogs(config, data, random)
+    logger.debug(
+        "using %d scales %s weighting",
+        config.scales.num_scales,
+        "with" if config.scales.rweight else "without",
+    )
+
+    # queue all count types on the device first, then finalize in order:
+    # the host waits for one count while later ones still run
+    dd = links.count_pairs(data, **kwargs, count_type_info="DD", _defer=True)
+    # data x random pairs are counted between matching redshift bins on
+    # both sides, like the reference's binned random trees
+    dr = links.count_pairs(
+        data, random, binned2=True, **kwargs, count_type_info="DR",
+        _defer=True,
+    )
+    optional_random = random if count_rr else None
+    rr = links.count_pairs_optional(
+        optional_random, **kwargs, count_type_info="RR", _defer=True
+    )
+    dd, dr, rr = dd(), dr(), rr()
+    return [CorrFunc(a, b, None, c) for a, b, c in zip(dd, dr, rr)]
 
 
 def crosscorrelate(
@@ -462,3 +613,115 @@ def crosscorrelate(
     )
     dd, dr, rd, rr = dd(), dr(), rd(), rr()
     return [CorrFunc(a, b, c, d) for a, b, c, d in zip(dd, dr, rd, rr)]
+
+
+def compute_scalar_normalisation(
+    catalog: Catalog, config: Configuration
+) -> NormalisedScalarCounts:
+    """Normalisation for scalar counts from the mean kappa per patch (used
+    when no randoms are provided to :func:`crosscorrelate_scalar`)."""
+    binning = config.binning.binning
+    tiles = catalog.get_tiles(binning, mode="n")
+    if tiles.sum_kappa is None:
+        raise ValueError("missing required 'kappa' values")
+
+    num_bins, num_patches = tiles.sum_kappa.shape
+    sum_kappa = np.zeros((num_bins, num_patches, num_patches))
+    sum_weights = np.zeros_like(sum_kappa)
+    diag = np.arange(num_patches)
+    sum_kappa[:, diag, diag] = tiles.sum_kappa
+    sum_weights[:, diag, diag] = tiles.sum_weights
+
+    return NormalisedScalarCounts(
+        PatchedCounts(binning, sum_kappa, auto=False),
+        PatchedCounts(binning, sum_weights, auto=False),
+    )
+
+
+def autocorrelate_scalar(
+    config: Configuration,
+    data: Catalog,
+    *,
+    backend: str = "auto",
+    device: torch.device | str = "cuda",
+    progress: bool = False,
+    max_workers: int | None = None,
+    max_resident_patches: int | None = None,
+    audit: bool = False,
+    mesh=None,
+    data_sharding: str = "replicated",
+) -> list[ScalarCorrFunc]:
+    """Measure the angular autocorrelation amplitude of a scalar (kappa)
+    field in bins of redshift, on ``device`` as in :func:`autocorrelate`."""
+    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    device = resolve_device(device)
+    logger.info("computing scalar auto-correlation with DD")
+    links = PatchLinkage.from_catalogs(config, data)
+    dd = links.count_scalar_pairs(
+        data, mode="kk", backend=backend, device=device, progress=progress,
+        max_workers=max_workers, count_type_info="DD",
+    )
+    return [ScalarCorrFunc(counts) for counts in dd]
+
+
+def crosscorrelate_scalar(
+    config: Configuration,
+    reference: Catalog,
+    unknown: Catalog,
+    *,
+    unk_rand: Catalog | None = None,
+    backend: str = "auto",
+    device: torch.device | str = "cuda",
+    progress: bool = False,
+    max_workers: int | None = None,
+    max_resident_patches: int | None = None,
+    audit: bool = False,
+    mesh=None,
+    data_sharding: str = "replicated",
+) -> list[ScalarCorrFunc]:
+    """Measure the angular cross-correlation amplitude between a scalar
+    (kappa) field carried by the REFERENCE sample and the unknown sample
+    (the reference's ``crosscorrelate_scalar`` semantics: counting mode
+    ``kn`` weights the redshift-binned reference side by kappa * weight,
+    yaw/correlation/measurements.py:709-800), on ``device`` as in
+    :func:`crosscorrelate`.
+
+    Without unknown randoms the counts are normalised by the mean kappa
+    over the footprint instead of a DR term."""
+    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    device = resolve_device(device)
+    ensure_unique_catalogs(reference, unknown, unk_rand)
+    count_dr = unk_rand is not None
+    logger.info(
+        "computing scalar cross-correlation with DD%s",
+        ", DR" if count_dr else "",
+    )
+
+    catalogs = [cat for cat in (unk_rand,) if cat is not None]
+    links = PatchLinkage.from_catalogs(config, reference, unknown, *catalogs)
+
+    kwargs = dict(
+        backend=backend, device=device, progress=progress,
+        max_workers=max_workers,
+    )
+    # queue both count types on the device before finalizing either, the
+    # same defer/finalize overlap crosscorrelate applies across DD..RR
+    dd = links.count_scalar_pairs(
+        reference, unknown, mode="kn", **kwargs, count_type_info="DD",
+        _defer=True,
+    )
+    dr = (
+        links.count_scalar_pairs(
+            reference, unk_rand, mode="kn", **kwargs, count_type_info="DR",
+            _defer=True,
+        )
+        if count_dr
+        else None
+    )
+    dd = dd()  # finalize in queue order: the DR counts still run
+    dr = (
+        dr()
+        if dr is not None
+        else [compute_scalar_normalisation(reference, config)] * len(dd)
+    )
+    return [ScalarCorrFunc(a, b) for a, b in zip(dd, dr)]

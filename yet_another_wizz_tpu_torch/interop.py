@@ -1,10 +1,11 @@
 """Build this package's engine inputs from the JAX package's host state.
 
-The JAX package's ``TileSet`` and ``TilePairs`` are plain numpy containers
-on the host. Passing their fields here as numpy arrays gives the port the
-same tile lanes and pair lists byte for byte, so both engines can be held
-against each other on identical inputs. Nothing here imports either JAX
-package module: callers pass arrays.
+The JAX package's ``TileSet``, ``TilePairs`` and ``AngularEdges`` (with
+its ``DirectEdges``) are plain numpy containers on the host. Passing their
+fields here as numpy arrays gives the port the same tile lanes, pair lists
+and edge tables byte for byte, so both engines can be held against each
+other on identical inputs. Nothing here imports either JAX package module:
+callers pass arrays.
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from yet_another_wizz_tpu_torch.ops.linkage import TilePairs
+from yet_another_wizz_tpu_torch.ops.thresholds import AngularEdges, DirectEdges
 from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
 
 __all__ = [
+    "angular_edges_from_arrays",
     "tilepairs_from_arrays",
     "tileset_from_arrays",
 ]
@@ -72,4 +75,36 @@ def tilepairs_from_arrays(
         tile2=np.ascontiguousarray(tile2, dtype=np.int32),
         slot=np.ascontiguousarray(slot, dtype=np.int32),
         slot_patches=np.asarray(slot_patches),
+    )
+
+
+def angular_edges_from_arrays(
+    *,
+    chord2_table: NDArray,
+    edges: NDArray,
+    scale_maps: NDArray,
+    max_angle: float,
+    direct: dict | None = None,
+) -> AngularEdges:
+    """An :class:`AngularEdges` from the fields of the JAX package's
+    ``AngularEdges`` dataclass. ``direct`` holds the fields of its
+    ``DirectEdges`` (``chord2_table``, ``edges``, ``scale_maps``,
+    ``gtable``, ``num_sub``, ``num_below``, ``num_above``), or is None for
+    cumulative counting."""
+    if direct is not None:
+        direct = DirectEdges(
+            chord2_table=np.asarray(direct["chord2_table"], np.float32),
+            edges=np.asarray(direct["edges"], np.float64),
+            scale_maps=np.asarray(direct["scale_maps"], np.float64),
+            gtable=np.asarray(direct["gtable"], np.float32),
+            num_sub=int(direct["num_sub"]),
+            num_below=int(direct["num_below"]),
+            num_above=int(direct["num_above"]),
+        )
+    return AngularEdges(
+        chord2_table=np.asarray(chord2_table, np.float32),
+        edges=np.asarray(edges, np.float64),
+        scale_maps=np.asarray(scale_maps, np.float64),
+        max_angle=float(max_angle),
+        direct=direct,
     )

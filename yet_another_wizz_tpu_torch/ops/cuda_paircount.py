@@ -1,26 +1,29 @@
 """Wrappers of the hand-written CUDA pair-count kernels (``csrc/paircount.cu``).
 
 The kernels replace ``yet_another_wizz_tpu/ops/pallas_paircount.py::
-_paircount_kernel`` in its cumulative, unbinned-column variant (ROADMAP
-K1.1: crosscorrelate DD, DR, RD):
+_paircount_kernel`` in all of its variants (ROADMAP K1.1-K1.5):
 
 - ``paircount_partials`` (kernel A) computes the ``(B, E)`` block of every
-  entry of the tile-pair list into ``partial[k]``;
+  entry of the tile-pair list into ``partial[k]``; its variants count
+  cumulatively or with direct separation weights (small-angle or arcsine
+  index), against unbinned or binned columns;
 - ``segment_sum`` (kernel B) sums each slot's contiguous run of partials
   in list order into ``out[slot]``.
 
 Together they are deterministic: no float atomics, fixed summation order.
-They are bound by float32 ALU work, about 20 operations per candidate pair
-(the compensated chord plus a compare and an add per edge). The TPU
-kernel's row-side precompute (per-row thresholds gathered into device
-memory ahead of the kernel) is dropped: kernel A gathers each row's
-thresholds from the table in shared memory once per tile pair.
+They are bound by float32 ALU work (the compensated chord, a compare and
+an add per counting edge, and in direct mode the separation weight per
+pair). The TPU kernel's row-side precompute (per-row thresholds gathered
+into device memory ahead of the kernel) is dropped: kernel A gathers each
+row's thresholds and weight parameters from the table in shared memory
+once per tile pair.
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/yawt_torch_kernels/`` and loaded with ``ctypes``. A wrapper given
-CPU tensors runs the kernel's plain PyTorch version from
-:mod:`.paircount` instead; on a CUDA tensor it launches the kernel or
-raises. Each launch adds one to :data:`launch_counts`.
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use, once per
+counting mode and in parallel, into ``build/yawt_torch_kernels/`` and
+loaded with ``ctypes``. A wrapper given CPU tensors runs the kernel's
+plain PyTorch version from :mod:`.paircount` instead; on a CUDA tensor it
+launches the kernel or raises. Each launch adds one to the variant's entry
+of :data:`launch_counts`.
 """
 
 from __future__ import annotations
@@ -28,12 +31,14 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
+from yet_another_wizz_tpu_torch.ops.gweight import counting_width
 from yet_another_wizz_tpu_torch.ops.paircount import (
     partial_counts_torch,
     segment_sum_torch,
@@ -54,6 +59,7 @@ __all__ = [
     "paircount_partials",
     "reset_launch_counts",
     "segment_sum",
+    "variant_name",
 ]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paircount.cu"
@@ -61,19 +67,55 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paircount.cu"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    "--fmad=false",  # no FMA contraction in the chord arithmetic
+    "--fmad=false",  # no FMA contraction in the chord and weight arithmetic
     "-Xptxas", "-v",  # registers, shared memory and spills in the build log
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+MODES = ("cumulative", "direct", "arcsine")
+"""Counting modes, one library each (``-DYAWT_DIRECT=0, 1, 2``): cumulative,
+direct with the small-angle index, direct with the arcsine index."""
+
 MAX_EDGES_PER_LAUNCH = 16
-"""Edges one launch of kernel A counts (its per-thread accumulators are
-sized at compile time); wider tables take one launch per group."""
+"""Counting edges one launch of kernel A covers (its per-thread
+accumulators are sized at compile time); wider tables take one launch per
+group."""
 
-launch_counts = {"paircount_partials": 0, "paircount_segment_sum": 0}
-"""Kernel launches in this process, by kernel name."""
+MAX_ADJUSTMENTS = 16
+"""Below- and above-entries per side the direct-mode kernels hold in
+registers."""
 
-_lib = None
+
+def variant_name(cols_binned: bool, direct: tuple | None) -> str:
+    """The :data:`launch_counts` key of a kernel-A variant."""
+    if direct is None:
+        name = "paircount_partials"
+    else:
+        name = "paircount_partials_" + MODES[_mode(direct)]
+    return name + "_binned" if cols_binned else name
+
+
+def _mode(direct: tuple | None) -> int:
+    if direct is None:
+        return 0
+    return 1 if len(direct) > 3 and direct[3] else 2
+
+
+launch_counts = {
+    name: 0
+    for name in (
+        "paircount_partials",
+        "paircount_partials_binned",
+        "paircount_partials_direct",
+        "paircount_partials_direct_binned",
+        "paircount_partials_arcsine",
+        "paircount_partials_arcsine_binned",
+        "paircount_segment_sum",
+    )
+}
+"""Kernel launches in this process, by kernel variant."""
+
+_libs: dict[int, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -83,32 +125,53 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def _load(path: Path, mode: int) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.yawt_paircount_mode.restype = i32
+    if lib.yawt_paircount_mode() != mode:
+        raise RuntimeError(f"{path} was not built for counting mode {mode}")
+    lib.yawt_paircount_partials.argtypes = [
+        ptr, ptr, ptr, ptr, i64, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+    ]
+    lib.yawt_paircount_partials.restype = i32
+    if mode == 0:
+        lib.yawt_segment_sum.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
+        lib.yawt_segment_sum.restype = i32
+    return lib
+
+
 def build() -> str:
-    """Compile (when the source is newer than the library) and load the
-    kernels. Returns the compiler's output, empty when nothing was built."""
-    global _lib
+    """Compile (when the source is newer than the libraries) and load the
+    kernels: one ``nvcc`` process per counting mode, all started together.
+    Returns the compilers' output, empty when nothing was built."""
     with _lib_lock:
-        if _lib is not None:
+        if _libs:
             return ""
         from torch.utils.cpp_extension import CUDA_HOME
 
         if CUDA_HOME is None:
             raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-        target = build_directory("yawt_torch_kernels") / "libyawt_paircount.so"
-        log = build_shared_library(
-            [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS],
-            [SOURCE], target, timeout=600,
-        )
-        lib = ctypes.CDLL(str(target))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.yawt_paircount_partials.argtypes = [
-            ptr, ptr, ptr, ptr, i64, ptr, i32, i32, i32, i32, i32, ptr, ptr,
+        directory = build_directory("yawt_torch_kernels")
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+        targets = [
+            directory / f"libyawt_paircount_{name}.so" for name in MODES
         ]
-        lib.yawt_paircount_partials.restype = i32
-        lib.yawt_segment_sum.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
-        lib.yawt_segment_sum.restype = i32
-        _lib = lib
-        return log
+
+        def compile_mode(mode: int) -> str:
+            return build_shared_library(
+                [nvcc, *NVCC_FLAGS, f"-DYAWT_DIRECT={mode}"],
+                [SOURCE], targets[mode], timeout=600,
+            )
+
+        with ThreadPoolExecutor(len(MODES)) as pool:
+            logs = list(pool.map(compile_mode, range(len(MODES))))
+        libs = {mode: _load(target, mode) for mode, target in enumerate(targets)}
+        _libs.update(libs)
+        return "".join(
+            f"[{MODES[mode]}]\n{log}" for mode, log in enumerate(logs) if log
+        )
 
 
 def _check(tensor: torch.Tensor, name: str, dtype, ndim, device) -> None:
@@ -127,20 +190,41 @@ def _raise_on_error(status: int, kernel: str) -> None:
         raise RuntimeError(f"launching {kernel} failed with CUDA error {status}")
 
 
+def _table_layout(table: torch.Tensor, direct: tuple | None) -> int:
+    """Counting edges of a (possibly combined) table; raises for a table
+    that does not fit the direct specification."""
+    num_edges = counting_width(table.shape[1], direct)
+    if num_edges < 1:
+        raise ValueError(
+            f"table of width {table.shape[1]} has no counting edges for the "
+            f"direct specification {direct}"
+        )
+    return num_edges
+
+
 def paircount_partials(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
     tile1: torch.Tensor,
     tile2: torch.Tensor,
     chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    direct: tuple | None = None,
 ) -> torch.Tensor:
     """``(P, B, E)`` float32 block of every tile pair ``(tile1[k],
     tile2[k])`` (kernel A). ``lanes*`` are ``(N, 8, T)`` float32 tiles,
     ``tile*`` int32 indices, ``chord2_table`` the ``(B, E)`` float32
-    thresholds. Launches on the current stream and does not synchronise."""
+    thresholds or, with ``direct = (num_sub, num_below, num_above,
+    small_angle)``, the ``(B, E + C)`` combined table of
+    :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`.
+    ``cols_binned`` counts a column only where its bin equals the row's.
+    Launches on the current stream and does not synchronise."""
+    num_edges = _table_layout(chord2_table, direct)
     if lanes1.device.type == "cpu":
         return partial_counts_torch(
-            lanes1, lanes2, tile1.long(), tile2.long(), chord2_table
+            lanes1, lanes2, tile1.long(), tile2.long(), chord2_table,
+            cols_binned=cols_binned, direct=direct,
         )
     if lanes1.device.type != "cuda":
         raise ValueError(f"no pair-count kernel for device {lanes1.device}")
@@ -155,8 +239,14 @@ def paircount_partials(
         raise ValueError("lanes must be (N, 8, T) with one tile size T")
     if tile1.shape != tile2.shape:
         raise ValueError("'tile1' and 'tile2' differ in length")
+    num_grid, num_below, num_above = direct[:3] if direct else (0, 0, 0)
+    if max(num_below, num_above) > MAX_ADJUSTMENTS:
+        raise ValueError(
+            f"the direct-mode kernels hold at most {MAX_ADJUSTMENTS} below- "
+            f"and above-entries, got {num_below} and {num_above}"
+        )
     num_pairs = len(tile1)
-    num_bins, num_edges = chord2_table.shape
+    num_bins, table_width = chord2_table.shape
     partial = torch.empty(
         (num_pairs, num_bins, num_edges), dtype=torch.float32, device=device
     )
@@ -164,18 +254,21 @@ def paircount_partials(
         return partial
 
     build()
+    lib = _libs[_mode(direct)]
+    name = variant_name(cols_binned, direct)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for edge0 in range(0, num_edges, MAX_EDGES_PER_LAUNCH):
-            num_sub = min(MAX_EDGES_PER_LAUNCH, num_edges - edge0)
-            status = _lib.yawt_paircount_partials(
+            num_group = min(MAX_EDGES_PER_LAUNCH, num_edges - edge0)
+            status = lib.yawt_paircount_partials(
                 lanes1.data_ptr(), lanes2.data_ptr(),
                 tile1.data_ptr(), tile2.data_ptr(), num_pairs,
-                chord2_table.data_ptr(), num_bins, num_edges, edge0, num_sub,
-                tile_size, partial.data_ptr(), stream,
+                chord2_table.data_ptr(), num_bins, table_width, num_edges,
+                edge0, num_group, tile_size, int(cols_binned), num_grid,
+                num_below, num_above, partial.data_ptr(), stream,
             )
-            _raise_on_error(status, "paircount_partials")
-            launch_counts["paircount_partials"] += 1
+            _raise_on_error(status, name)
+            launch_counts[name] += 1
     return partial
 
 
@@ -207,7 +300,7 @@ def segment_sum(
 
     build()
     with torch.cuda.device(device):
-        status = _lib.yawt_segment_sum(
+        status = _libs[0].yawt_segment_sum(
             partial.data_ptr(), offsets.data_ptr(), num_slots, width,
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
@@ -255,6 +348,9 @@ def count_pairs_cuda(
     lanes2: torch.Tensor,
     pairs: TilePairs,
     chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    direct: tuple | None = None,
 ) -> torch.Tensor:
     """``(num_slots, B, E)`` float32 cumulative counts per patch-pair slot
     of a slot-sorted tile-pair list: kernel A, then kernel B, queued on the
@@ -266,6 +362,7 @@ def count_pairs_cuda(
         raise ValueError("tile-pair list indexes past the tile sets")
     index = _pair_index(pairs, lanes1.device)
     partial = paircount_partials(
-        lanes1, lanes2, index.tile1, index.tile2, chord2_table
+        lanes1, lanes2, index.tile1, index.tile2, chord2_table,
+        cols_binned=cols_binned, direct=direct,
     )
     return segment_sum(partial, index.slot, index.offsets, pairs.num_slots)

@@ -10,7 +10,8 @@ kmeans++ seeding and vectorised Lloyd iterations on the host (like the
 reference's treecorr call, the clustering itself is a small host-side
 problem); the O(N * P) assignment of the full catalog runs on the host
 below :data:`DEVICE_ASSIGN_THRESHOLD` and as a float32 ``torch.matmul`` +
-``argmax`` on a torch device above it. Unlike treecorr (whose centers are
+``argmax`` on the caller's torch device above it (default ``"cuda"``,
+which raises when CUDA is not available). Unlike treecorr (whose centers are
 non-deterministic, reference docs ``concepts.rst:109-111``), results are
 reproducible for a fixed seed.
 
@@ -73,11 +74,13 @@ def kmeans_patch_centers(
     probe_size: int | None = None,
     seed: int = 12345,
     iterations: int = DEFAULT_KMEANS_ITERATIONS,
+    device: torch.device | str = "cuda",
 ) -> NDArray:
     """Generate ``num_patches`` patch centers on the unit sphere.
 
     A uniform random probe subsample (the reference's ``probe_size``
-    logic) bounds the clustering cost for large catalogs.
+    logic) bounds the clustering cost for large catalogs. ``device`` is
+    passed to :func:`assign_patches`.
 
     Returns float64 unit vectors of shape ``(num_patches, 3)``.
     """
@@ -104,7 +107,7 @@ def kmeans_patch_centers(
     centers = _seed_centers_plusplus(xyz, weights, num_patches, rng)
     weighted_xyz = np.ascontiguousarray(xyz * weights[:, None])
     for _ in range(iterations):
-        labels = assign_patches(xyz, centers)
+        labels = assign_patches(xyz, centers, device=device)
         sums = np.stack(
             [
                 np.bincount(
@@ -149,14 +152,15 @@ def assign_patches(
     centers: NDArray,
     chunk: int = 4_000_000,
     *,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> NDArray:
     """Assign each point to its nearest patch center (greatest dot
     product), the analogue of ``scipy.cluster.vq.vq`` on unit vectors.
 
     Small problems run on the host; large catalogs stream through
-    ``device`` in chunks (float32 matmul + argmax). ``device=None`` picks
-    ``cuda`` when a card is present and the CPU otherwise."""
+    ``device`` in chunks (float32 matmul + argmax). A CUDA ``device``
+    raises when CUDA is not available; pass ``device="cpu"`` to run the
+    large-catalog path on the CPU."""
     xyz = np.asarray(xyz)
     if len(xyz) * len(centers) < DEVICE_ASSIGN_THRESHOLD:
         from yet_another_wizz_tpu_torch import _native
@@ -181,8 +185,9 @@ def assign_patches(
             out[start : start + host_chunk] = np.argmax(scores, axis=1)
         return out
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    from yet_another_wizz_tpu_torch.ops.paircount import resolve_device
+
+    device = resolve_device(device)
     centers_dev = torch.as_tensor(
         np.asarray(centers, np.float32), device=device
     )

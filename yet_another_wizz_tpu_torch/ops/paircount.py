@@ -36,6 +36,11 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from yet_another_wizz_tpu_torch.ops.gweight import (
+    apply_direct_weight,
+    counting_width,
+)
+
 if TYPE_CHECKING:
     from numpy.typing import NDArray
 
@@ -71,7 +76,12 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def pair_block_counts(
-    lanes1: torch.Tensor, lanes2: torch.Tensor, chord2_table: torch.Tensor
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    direct: tuple | None = None,
 ) -> torch.Tensor:
     """Cumulative weighted pair counts between batches of tile pairs.
 
@@ -80,17 +90,27 @@ def pair_block_counts(
             catalog); channel layout as in :mod:`.tiles`.
         lanes2: ``(K, 8, T)`` float32 column tiles.
         chord2_table: ``(B, E)`` float32 squared-chord thresholds per bin.
+            In direct mode the table carries the per-bin weight parameter
+            block appended after the counting edges (see
+            :meth:`yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`).
+        cols_binned: require equal bin indices on both sides (both catalogs
+            binned, i.e. autocorrelation-style counting).
+        direct: ``(num_sub, num_below, num_above[, small_angle])``
+            configuration of the direct separation-weighted counting mode,
+            or None.
 
     Returns:
         ``(K, B, E)`` float32; entry (k, b, e) is the sum of ``w_i * w_j``
         over pairs of tile pair k with row point in bin b and squared
-        chord ``<= chord2_table[b, e]``.
+        chord ``<= chord2_table[b, e]`` (times the per-pair separation
+        weight in direct mode).
 
-    Every elementwise step is a separate float32 operation, so the chord
+    Every elementwise step is a separate float32 operation, so the
     arithmetic rounds exactly as the CUDA kernel's (which is built without
     FMA contraction); only the order of the float32 sums differs.
     """
-    num_bins, num_edges = chord2_table.shape
+    num_bins = chord2_table.shape[0]
+    num_edges = counting_width(chord2_table.shape[1], direct)
     rows = lanes1.transpose(1, 2)  # (K, T, 8)
 
     # squared chord distance with (hi, lo) compensation, shape (K, T, T)
@@ -101,13 +121,26 @@ def pair_block_counts(
         d = d_hi + d_lo
         chord2 = d * d if chord2 is None else chord2 + d * d
 
-    # per-row thresholds: an exact gather by the row's bin id (padding
-    # rows carry bin 0 and weight 0)
+    # per-row thresholds (and weight parameters): an exact gather by the
+    # row's bin id (padding rows carry bin 0 and weight 0)
     bin_ids = rows[:, :, 7].long().clamp_(0, num_bins - 1)  # (K, T)
-    thresholds = chord2_table[bin_ids]  # (K, T, E)
+    selected = chord2_table[bin_ids]  # (K, T, E [+ C])
+    thresholds = selected[:, :, :num_edges]
 
-    w_cols = lanes2[:, None, 6, :]  # (K, 1, T)
     zero = torch.zeros((), dtype=chord2.dtype, device=chord2.device)
+    w_cols = lanes2[:, None, 6, :]  # (K, 1, T)
+    if cols_binned:
+        # exact compare of the float bin lanes
+        same_bin = rows[:, :, 7, None] == lanes2[:, None, 7, :]  # (K, T, T)
+        w_cols = torch.where(same_bin, w_cols, zero)
+    if direct is not None:
+        w_cols = apply_direct_weight(
+            chord2, selected[:, :, num_edges:],
+            w_cols.expand(chord2.shape),
+            num_sub=direct[0], num_below=direct[1], num_above=direct[2],
+            small_angle=len(direct) > 3 and bool(direct[3]),
+        )
+
     row_counts = torch.stack(
         [
             torch.where(chord2 <= thresholds[:, :, e, None], w_cols, zero).sum(
@@ -136,12 +169,15 @@ def partial_counts_torch(
     tile2: torch.Tensor,
     chord2_table: torch.Tensor,
     *,
+    cols_binned: bool = False,
+    direct: tuple | None = None,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
 ) -> torch.Tensor:
     """``(P, B, E)`` float32 block of every tile pair ``(tile1[k],
     tile2[k])``: the plain version of the CUDA partials kernel. Works in
     batches of ``chunk_size`` tile pairs to bound the temporaries."""
-    num_bins, num_edges = chord2_table.shape
+    num_bins = chord2_table.shape[0]
+    num_edges = counting_width(chord2_table.shape[1], direct)
     partial = torch.empty(
         (len(tile1), num_bins, num_edges),
         dtype=torch.float32, device=lanes1.device,
@@ -149,7 +185,8 @@ def partial_counts_torch(
     for start in range(0, len(tile1), chunk_size):
         stop = start + chunk_size
         partial[start:stop] = pair_block_counts(
-            lanes1[tile1[start:stop]], lanes2[tile2[start:stop]], chord2_table
+            lanes1[tile1[start:stop]], lanes2[tile2[start:stop]], chord2_table,
+            cols_binned=cols_binned, direct=direct,
         )
     return partial
 
@@ -174,6 +211,8 @@ def count_pairs_torch(
     pairs: TilePairs,
     chord2_table: torch.Tensor,
     *,
+    cols_binned: bool = False,
+    direct: tuple | None = None,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
 ) -> torch.Tensor:
     """The plain PyTorch engine: ``(num_slots, B, E)`` float32 cumulative
@@ -183,7 +222,8 @@ def count_pairs_torch(
     tile2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
     slot = torch.from_numpy(np.asarray(pairs.slot, np.int64)).to(device)
     partial = partial_counts_torch(
-        lanes1, lanes2, tile1, tile2, chord2_table, chunk_size=chunk_size
+        lanes1, lanes2, tile1, tile2, chord2_table,
+        cols_binned=cols_binned, direct=direct, chunk_size=chunk_size,
     )
     return segment_sum_torch(partial, slot, pairs.num_slots)
 
@@ -241,21 +281,32 @@ def count_pairs_tiles(
     plain PyTorch engine on ``device``), ``oracle`` (float64 scipy
     kd-trees on the host, requires ``edges_radian``).
 
-    Only the cumulative mode of unbinned columns is ported: binned columns
-    (autocorrelation-style counting), ``direct``, ``audit``, a ``mesh``
+    A binned second tile set counts equal-bin pairs only
+    (autocorrelation-style counting). With ``direct`` (a ``(num_sub,
+    num_below, num_above[, small_angle])`` tuple) the engine runs the
+    direct separation-weighted counting mode: ``chord2_table`` must then
+    be the combined counting+parameter table
+    (:meth:`yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`)
+    and the output edge axis covers only the counting edges. It is not
+    available with ``audit`` or the ``oracle`` backend, which require the
+    union-edge cumulative representation (callers fall back to it).
+
+    Not ported yet: ``audit`` (raises ``NotImplementedError``), a ``mesh``
     other than ``None``/``"single"`` and ``data_sharding`` other than
-    ``"replicated"`` raise ``NotImplementedError``.
+    ``"replicated"`` (raise ``NotImplementedError``).
     """
+    if direct is not None and (audit or backend == "oracle"):
+        raise ValueError(
+            "direct counting requires the cumulative representation for "
+            "audit/oracle execution"
+        )
     if audit:
         raise NotImplementedError("the boundary audit is not ported yet")
-    if direct is not None:
-        raise NotImplementedError("direct counting is not ported yet")
     if mesh not in (None, "single") or data_sharding != "replicated":
         raise NotImplementedError("multi-device execution is not ported yet")
-    if tiles2.binned:
-        raise NotImplementedError(
-            "binned columns (equal-bin counting) are not ported yet"
-        )
+    cols_binned = tiles2.binned
+    if cols_binned and tiles1.num_bins != tiles2.num_bins:
+        raise ValueError("tile sets have inconsistent binning")
     if not tiles1.binned:
         raise ValueError("first tile set must be binned")
     if backend not in ("auto", "cuda", "torch", "oracle"):
@@ -276,14 +327,18 @@ def count_pairs_tiles(
     lanes2 = tiles2.device_data(device)
     if backend == "torch":
         result = count_pairs_torch(
-            lanes1, lanes2, pairs, table, chunk_size=chunk_size
+            lanes1, lanes2, pairs, table, cols_binned=cols_binned,
+            direct=direct, chunk_size=chunk_size,
         )
     else:
         from yet_another_wizz_tpu_torch.ops.cuda_paircount import (
             count_pairs_cuda,
         )
 
-        result = count_pairs_cuda(lanes1, lanes2, pairs, table)
+        result = count_pairs_cuda(
+            lanes1, lanes2, pairs, table, cols_binned=cols_binned,
+            direct=direct,
+        )
 
     if defer:
         return result
