@@ -26,8 +26,16 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   (K1.5: K1.1 and K1.2 with signed weights);
 - wide grid: scales up to 1.35 rad, wider than the small-angle index
   covers: ``crosscorrelate`` and ``autocorrelate`` (K1.4, the arcsine
-  index, unbinned and binned).
+  index, unbinned and binned);
+- many scales: ten overlapping scales between 100 and 2,000 kpc with
+  ``rweight=-1`` at resolution 32, 18 above-entries per bin:
+  ``crosscorrelate`` (K1.3 in two launches per count), its counts held
+  against the union-edge cumulative counts.
 
+Beside the variants' checks it logs, for each direct variant, the share
+of candidate pairs whose separation weight the kernel computes and the
+bound that counts the weight for those pairs only, and it times kernel B
+on a list shaped like the wide grid's cross RD against ``index_add_``.
 Every path resets the kernels' launch counts before it runs and checks
 after it that each variant of the path launched. The counts are checked
 against the float64 scipy oracle, and each path is timed warm. Every
@@ -66,6 +74,14 @@ CONFIG_WIDE = dict(
 )
 """The JAX test's wide grid (``tests/test_engine.py:1294``): edges beyond
 THETA_POLY_MAX = 1.2 rad take the arcsine index."""
+CONFIG_MANY = dict(
+    rmin=[100, 120, 150, 180, 220, 260, 300, 350, 400, 450],
+    rmax=[1000, 1100, 1200, 1300, 1400, 1500, 1600, 1700, 1800, 2000],
+    unit="kpc", rweight=-1.0, resolution=32, **ZRANGE,
+)
+"""Ten overlapping scales between 100 and 2,000 kpc: 18 interior limits,
+so 18 above-entries per bin (more than 16 per side), 20 counting edges
+(two launches of kernel A)."""
 RTOL = 1e-6
 """Tolerance of the cumulative comparisons: relative 1e-6, with an
 absolute floor of 1e-6 times the largest reference value. Kernel and
@@ -85,6 +101,7 @@ max|oracle|: a sum of signed terms loses the relative float32 precision
 its cancellation removes."""
 WARM_RUNS = 5
 KERNEL_REPS = 5
+GRAPH_LAUNCHES = 20
 PLAIN_CHUNK = 64
 """Tile pairs per batch of the plain engine on the card (64 MiB per
 (chunk, 512, 512) float32 temporary)."""
@@ -92,6 +109,9 @@ PLAIN_LIMIT = 2048
 """Tile pairs a new variant is held against its plain version on (the
 first entries of its path's pair list): the plain direct-mode engine
 takes ~1 ms per tile pair."""
+MANY_LIMIT = 384
+"""Tile pairs of the >16-entry configuration held against the plain
+version."""
 RR_ORACLE_SLOTS = 48
 """Slots of the 1M-random RR count checked against the oracle."""
 F32_RATE = 67e12
@@ -142,6 +162,22 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = KERNEL_REPS) -> float:
+    """Milliseconds of one ``fn()`` on the card without its host time: the
+    median replay of a CUDA graph of ``launches`` calls, over their number.
+    For a kernel shorter than the Python call that launches it, a call
+    timed alone measures the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
 def environment() -> str:
     import torch
 
@@ -167,18 +203,22 @@ def environment() -> str:
 
 
 def ptxas_summary(compiler_log: str) -> list[str]:
-    """One line per kernel instance: template arguments, registers and
+    """One line per kernel instance: template arguments, registers, the
+    blocks of 256 threads per SM those registers allow (65,536 registers
+    per SM, allocated in units of 8 per thread; at most 8 blocks) and
     spill bytes, from ``nvcc -Xptxas -v``."""
     lines, name, spill = [], None, ""
-    variant = re.compile(r"partials_kernelILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E")
+    variant = re.compile(
+        r"paircount_(?:partials|direct)_kernelILi(\d+)ELb([01])E(?:Li(\d+)E)?"
+    )
     for line in compiler_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
             match = variant.search(name)
             if match:
-                ne, binned, direct, adj = match.groups()
-                name = f"A<NE={ne}, binned={binned}, direct={direct}, adj={adj}>"
+                ne, binned, direct = match.groups()
+                name = f"A<NE={ne}, binned={binned}, direct={direct or 0}>"
             elif "segment_sum" in name:
                 name = "B segment_sum"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -186,7 +226,10 @@ def ptxas_summary(compiler_log: str) -> list[str]:
             spill = f"spill {stores.group(1)}/{stores.group(2)} B"
         used = re.search(r"Used (\d+) registers", line)
         if used and name:
-            lines.append(f"{name}: {used.group(1)} registers, {spill}")
+            registers = int(used.group(1))
+            blocks = min(8, 65536 // (256 * (-(-registers // 8) * 8)))
+            lines.append(f"{name}: {registers} registers ({blocks} blocks/SM), "
+                         f"{spill}")
             name = None
     return lines
 
@@ -271,13 +314,20 @@ def ops_per_pair(table_width: int, direct: tuple | None) -> int:
     """float32 operations per candidate pair (``BASELINE.md:40-53``): 15 for
     the compensated chord, 1 for the column weight, 3 per counting edge;
     direct mode adds 12 (small-angle) or 18 (arcsine) and 3 per
-    adjustment entry."""
+    adjustment entry: the every-pair bound, as if every pair were
+    weighted."""
     from yet_another_wizz_tpu_torch.ops.gweight import counting_width
 
     ops = 16 + 3 * counting_width(table_width, direct)
     if direct is not None:
-        ops += (12 if direct[3] else 18) + 3 * (direct[1] + direct[2])
+        ops += weight_ops(direct) + 3 * (direct[1] + direct[2])
     return ops
+
+
+def weight_ops(direct: tuple) -> int:
+    """float32 operations of one pair's separation weight: 12 with the
+    small-angle index, 18 with the arcsine index."""
+    return 12 if direct[3] else 18
 
 
 def bound(operations: float, num_bytes: float) -> tuple[float, str]:
@@ -291,11 +341,79 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def reaching_pairs(lanes1, lanes2, tile1, tile2, table, direct, cols_binned):
+    """Candidate pairs whose weight the direct kernel needs, counted by the
+    plain engine with unit weights against tables of the rows' largest
+    thresholds: for each launch, the pairs within the largest threshold of
+    its edge group (and, with binned columns, of equal bins), and the
+    pairs within the largest threshold of any edge. Also the share of the
+    first launch's (warp, column) steps in which any of the warp's 32
+    consecutive rows reaches the column: a warp runs the weight code for
+    all its lanes in such a step. Returns ``(per_launch, group_sizes,
+    any_edge, warp_share)``."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.ops.gweight import counting_width
+    from yet_another_wizz_tpu_torch.ops.paircount import partial_counts_torch
+
+    num_edges = counting_width(table.shape[1], direct)
+    group = cuda_paircount.MAX_EDGES_PER_LAUNCH
+    starts = range(0, num_edges, group)
+    sizes = [min(group, num_edges - e0) for e0 in starts]
+    reach = torch.stack([
+        table[:, e0:e0 + size].max(dim=1).values
+        for e0, size in zip(starts, sizes)
+    ] + [table[:, :num_edges].max(dim=1).values], dim=1)  # (B, launches + 1)
+    ones1, ones2 = lanes1.clone(), lanes2.clone()
+    ones1[:, 6] = 1.0
+    ones2[:, 6] = 1.0
+    counts = partial_counts_torch(
+        ones1, ones2, tile1.long(), tile2.long(), reach,
+        cols_binned=cols_binned, chunk_size=PLAIN_CHUNK,
+    ).double().sum(dim=(0, 1)).tolist()
+    steps = hits = 0
+    for start in range(0, len(tile1), PLAIN_CHUNK):
+        rows = lanes1[tile1[start:start + PLAIN_CHUNK].long()]
+        cols = lanes2[tile2[start:start + PLAIN_CHUNK].long()]
+        chord2 = 0.0
+        for d in range(3):  # the kernel's compensated chord
+            diff = (rows[:, d, :, None] - cols[:, None, d, :]) + (
+                rows[:, 3 + d, :, None] - cols[:, None, 3 + d, :]
+            )
+            chord2 = chord2 + diff * diff
+        bins = rows[:, 7].long().clamp(0, table.shape[0] - 1)
+        reached = chord2 <= reach[bins, 0][:, :, None]
+        if cols_binned:
+            reached &= rows[:, 7, :, None] == cols[:, None, 7, :]
+        num, size = reached.shape[:2]
+        hits += reached.view(num, size // 32, 32, size).any(dim=2).sum().item()
+        steps += num * (size // 32) * size
+    return counts[:-1], sizes, counts[-1], hits / steps
+
+
+def reach_operations(candidates, per_launch, sizes, any_edge, direct,
+                     cols_binned) -> float:
+    """float32 operations these inputs need in direct mode: the chord (15)
+    and the compare against the row's reach (1) of every candidate pair,
+    the bin compare (1) with binned columns; 3 per counting edge of a
+    launch for each pair within that launch's reach; the separation
+    weight and its product with the column weight once for each pair
+    within reach of any edge. The entries a weighted pair walks are left
+    out (most sub-intervals have none), so it stays a lower bound."""
+    ops = candidates * (16 + int(cols_binned))
+    ops += sum(3 * size * pairs for size, pairs in zip(sizes, per_launch))
+    return ops + any_edge * (1 + weight_ops(direct))
+
+
 def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     """A kernel-A variant against its plain version on the inputs of one
     count of its path (the first ``limit`` entries of the pair list): two
     kernel runs bitwise equal, the error, the kernel's and the plain
-    version's milliseconds, and the bound."""
+    version's milliseconds, and the bound. In direct mode also the share of
+    candidate pairs within reach of an edge, and the bound of the work
+    these inputs need (:func:`reach_operations`: the ``bound_ms`` of the
+    result) beside the every-pair bound."""
     import torch
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
@@ -332,10 +450,25 @@ def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     err = compare(first, expected, RTOL if direct is None else DIRECT_RTOL)
     num_pairs = len(tile1)
     candidates = num_pairs * tiles1.tile_size ** 2
+    num_bytes = nbytes(lanes1, lanes2, tile1, tile2, table, first)
     bound_ms, bound_by = bound(
-        candidates * ops_per_pair(table.shape[1], direct),
-        nbytes(lanes1, lanes2, tile1, tile2, table, first),
+        candidates * ops_per_pair(table.shape[1], direct), num_bytes
     )
+    reach = ""
+    if direct is not None:
+        per_launch, sizes, any_edge, warp_share = reaching_pairs(
+            lanes1, lanes2, tile1, tile2, table, direct, tiles2.binned
+        )
+        every_pair_ms = bound_ms
+        bound_ms, bound_by = bound(
+            reach_operations(candidates, per_launch, sizes, any_edge, direct,
+                             tiles2.binned),
+            num_bytes,
+        )
+        shares = " + ".join(f"{n / candidates:.4f}" for n in per_launch)
+        reach = (f", pairs in reach of an edge {any_edge / candidates:.4f} "
+                 f"(of each launch's edges {shares}; warp steps "
+                 f"{warp_share:.4f}), every-pair bound {every_pair_ms:.3f} ms")
     result = dict(
         name=name, count=count, tile_pairs=num_pairs, err=err,
         ms=cuda_ms(kernel, KERNEL_REPS), plain_ms=cuda_ms(plain, 1),
@@ -345,39 +478,24 @@ def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     log(f"[{card}] {name} [{count}, {num_pairs} of {pairs.num_pairs} tile pairs, "
         f"table {tuple(table.shape)}, direct {direct}]: kernel "
         f"{result['ms']:.3f} ms, plain {result['plain_ms']:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}), max abs err {err[0]:.3e}, max rel "
-        f"err {err[1]:.3e}, two kernel runs bitwise equal")
+        f"{bound_ms:.3f} ms ({bound_by}){reach}, max abs err {err[0]:.3e}, "
+        f"max rel err {err[1]:.3e}, two kernel runs bitwise equal")
     return result
 
 
-def kernels_vs_plain(card, catalogs, configs) -> dict:
-    """Every kernel against its plain version on the card, on the real
-    inputs of its path."""
+def segment_check(card, label, partial, pairs, *, double_reference=False):
+    """Kernel B against its plain version (in float64 with
+    ``double_reference``) and ``index_add_`` on the partials of one list:
+    two kernel runs bitwise equal, the error, the bound, and the times on
+    the card from CUDA graphs (kernel, plain version and ``index_add_``
+    alike), beside each call's time with its host work."""
     import numpy as np
     import torch
 
-    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
     from yet_another_wizz_tpu_torch.ops.paircount import segment_sum_torch
 
-    reference, unknown, randoms = catalogs
-    links = {
-        name: PatchLinkage.from_catalogs(config, *catalogs)
-        for name, config in configs.items()
-    }
-    results = {}
-    # K1.1 on the full headline DD list, and kernel B on its partials
-    results["paircount_partials"] = variant_check(
-        card, links["headline"], catalogs, "cross DD", limit=None
-    )
-    tiles1, tiles2, pairs = engine_inputs(links["headline"], catalogs, "cross DD")
-    device = torch.device("cuda")
-    partial = cuda_paircount.paircount_partials(
-        tiles1.device_data(device), tiles2.device_data(device),
-        torch.from_numpy(pairs.tile1).to(device),
-        torch.from_numpy(pairs.tile2).to(device),
-        torch.from_numpy(links["headline"].edges.chord2_table).to(device),
-    )
+    device = partial.device
     slot = torch.from_numpy(pairs.slot.astype(np.int64)).to(device)
     offsets = torch.from_numpy(
         np.searchsorted(pairs.slot, np.arange(pairs.num_slots + 1))
@@ -397,21 +515,71 @@ def kernels_vs_plain(card, catalogs, configs) -> dict:
     out, out2 = seg(), seg()
     torch.cuda.synchronize()
     check(torch.equal(out, out2), "segment_sum is not deterministic")
-    err = compare(out, plain_seg())
-    bound_ms, bound_by = bound(
-        partial.numel(), nbytes(partial, offsets, out)
+    if double_reference:
+        err = compare(out, segment_sum_torch(partial.double(), slot, pairs.num_slots))
+    else:
+        err = compare(out, plain_seg())
+    bound_ms, bound_by = bound(partial.numel(), nbytes(partial, offsets, out))
+    result = dict(
+        name="paircount_segment_sum", count=label,
+        tile_pairs=pairs.num_pairs, err=err, ms=graph_ms(seg),
+        plain_ms=graph_ms(plain_seg), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=graph_ms(library_seg),
     )
-    results["paircount_segment_sum"] = dict(
-        name="paircount_segment_sum", count="cross DD",
-        tile_pairs=pairs.num_pairs, err=err, ms=cuda_ms(seg, KERNEL_REPS),
-        plain_ms=cuda_ms(plain_seg, KERNEL_REPS), bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=cuda_ms(library_seg, KERNEL_REPS),
+    log(f"[{card}] paircount_segment_sum [{label}, {pairs.num_pairs} entries in "
+        f"{pairs.num_slots} slots, {nbytes(partial) / 1e6:.1f} MB]: kernel "
+        f"{result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, index_add_ "
+        f"{result['library_ms']:.4f} ms (CUDA graphs of {GRAPH_LAUNCHES}; one "
+        f"call with its host work: kernel {cuda_ms(seg, KERNEL_REPS):.4f} ms, "
+        f"index_add_ {cuda_ms(library_seg, KERNEL_REPS):.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({bound_by}), max abs err {err[0]:.3e}"
+        f"{' (against float64)' if double_reference else ''}, two kernel runs "
+        "bitwise equal")
+    return result
+
+
+def kernels_vs_plain(card, catalogs, configs) -> dict:
+    """Every kernel against its plain version on the card, on the real
+    inputs of its path; the direct kernel also on the >16-entry
+    configuration."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+
+    links = {
+        name: PatchLinkage.from_catalogs(config, *catalogs)
+        for name, config in configs.items()
+    }
+    results = {}
+    # K1.1 on the full headline DD list, and kernel B on its partials
+    results["paircount_partials"] = variant_check(
+        card, links["headline"], catalogs, "cross DD", limit=None
     )
-    r = results["paircount_segment_sum"]
-    log(f"[{card}] paircount_segment_sum [cross DD, {pairs.num_slots} slots]: kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, index_add_ "
-        f"{r['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), max "
-        f"abs err {err[0]:.3e}, two kernel runs bitwise equal")
+    tiles1, tiles2, pairs = engine_inputs(links["headline"], catalogs, "cross DD")
+    device = torch.device("cuda")
+    partial = cuda_paircount.paircount_partials(
+        tiles1.device_data(device), tiles2.device_data(device),
+        torch.from_numpy(pairs.tile1).to(device),
+        torch.from_numpy(pairs.tile2).to(device),
+        torch.from_numpy(links["headline"].edges.chord2_table).to(device),
+    )
+    results["paircount_segment_sum"] = segment_check(
+        card, "cross DD", partial, pairs
+    )
+    # kernel B on a list shaped like the wide grid's cross RD (its slot
+    # runs, values from the seed: the kernel's time does not depend on
+    # them), against the plain version in float64: over runs this long two
+    # float32 summation orders differ by more than RTOL
+    _, _, rd_pairs = engine_inputs(links["wide"], catalogs, "cross RD")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    partial = torch.rand(
+        (rd_pairs.num_pairs, NUM_BINS, links["wide"].edges.num_counting_edges),
+        generator=gen, device=device,
+    )
+    segment_check(card, "wide-grid cross RD shape", partial, rd_pairs,
+                  double_reference=True)
+    del partial
 
     for key, config, count in (
         ("paircount_partials_binned", "headline", "auto DD"),
@@ -431,6 +599,17 @@ def kernels_vs_plain(card, catalogs, configs) -> dict:
             check(result["negative"], f"{count} has no negative weights")
             result["name"] = key
         results[key] = result
+    # more than 16 below- or above-entries per bin: the same variant, held
+    # against its plain version
+    direct = links["many"].edges.direct
+    check(max(direct.num_below, direct.num_above) > 16,
+          f"the many-scale configuration has {direct.num_below} below- and "
+          f"{direct.num_above} above-entries")
+    result = variant_check(
+        card, links["many"], catalogs, "cross DD", limit=MANY_LIMIT
+    )
+    check(result["name"] == "paircount_partials_direct",
+          f"the many-scale cross DD ran {result['name']}")
     return results
 
 
@@ -709,6 +888,7 @@ def main() -> None:
         "headline": Configuration.create(**CONFIG),
         "B": Configuration.create(**CONFIG_B),
         "wide": Configuration.create(**CONFIG_WIDE),
+        "many": Configuration.create(**CONFIG_MANY),
     }
     config = configs["headline"]
 
@@ -830,6 +1010,46 @@ def main() -> None:
             f"per-scale max|err|/max {err:.3e}")
         check(err <= 5e-4, f"wide grid {count}: direct off the cumulative counts")
 
+    log("-- many-scale path (10 overlapping scales, 18 above-entries per bin)")
+    config_many = configs["many"]
+    wsp_m, _ = run_path(
+        "many scales",
+        lambda: crosscorrelate(
+            config_many, reference, unknown, ref_rand=randoms, device="cuda"
+        ),
+        {"paircount_partials_direct": 4, "paircount_segment_sum": 2},
+        launches_total,
+    )
+    check(len(wsp_m) == len(CONFIG_MANY["rmin"]), "many scales: wrong scale count")
+    for s, corr in enumerate(wsp_m):
+        check_nz(RedshiftData.from_corrfuncs(corr), f"many scales scale {s}")
+    # against the union-edge cumulative counts of the same pairs (K1.1 with
+    # 51 edges), within the direct mode's oracle tolerance
+    links_m = PatchLinkage.from_catalogs(config_many, *catalogs)
+    tiles1, tiles2, pairs = engine_inputs(links_m, catalogs, "cross DD")
+    table, _, direct, mapper = links_m.engine_table()
+    via_direct = mapper.counts_to_scales(count_pairs_tiles(
+        tiles1, tiles2, pairs, table, device="cuda", direct=direct,
+    ))
+    via_cumulative = links_m.edges.counts_to_scales(count_pairs_tiles(
+        tiles1, tiles2, pairs, links_m.edges.chord2_table, device="cuda"
+    ))
+    err = max(
+        np.abs(via_direct[s] - via_cumulative[s]).max()
+        / np.abs(via_cumulative[s]).max()
+        for s in range(len(via_direct))
+    )
+    main_path = max(
+        np.abs(main_path_counts(corr.dd, pairs, False) - via_cumulative[s]).max()
+        / np.abs(via_cumulative[s]).max()
+        for s, corr in enumerate(wsp_m)
+    )
+    log(f"many scales cross DD ({links_m.edges.num_edges} union edges): direct "
+        f"vs union-edge cumulative, per-scale max|err|/max {err:.3e}, main-path "
+        f"patch-pair counts {main_path:.3e}")
+    check(max(err, main_path) <= DIRECT_ORACLE_RTOL,
+          "many scales: direct off the cumulative counts")
+
     log("-- float64 oracle")
     oracle_check(catalogs, config, wsp)
     wss_oracle_check(catalogs, config, wss)
@@ -871,6 +1091,15 @@ def main() -> None:
         "wide grid (crosscorrelate + autocorrelate)": (
             wide_path, config_wide,
             ["cross DD", "cross RD", "auto DD", "auto DR", "auto RR"], 3,
+        ),
+        "many scales (crosscorrelate + 10 n(z))": (
+            lambda: [
+                RedshiftData.from_corrfuncs(corr) for corr in crosscorrelate(
+                    config_many, reference, unknown, ref_rand=randoms,
+                    device="cuda",
+                )
+            ],
+            config_many, ["cross DD", "cross RD"], 3,
         ),
     }
     torch.cuda.reset_peak_memory_stats()

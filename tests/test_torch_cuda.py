@@ -5,10 +5,13 @@ compiled with ``nvcc`` at first use) and skip without one. Run them on the
 card with ``python -m pytest tests/test_torch_cuda.py -m gpu``. Every
 variant of kernel A is covered: cumulative (K1.1) and binned columns
 (K1.2), direct counting with the small-angle (K1.3) and arcsine (K1.4)
-index, each with unbinned and binned columns, and signed weights (K1.5).
+index, each with unbinned and binned columns, and signed weights (K1.5),
+and direct counting with more than 16 below/above entries per bin.
 Cumulative variants agree with the plain version to 1e-6, direct ones to
 1e-5: a 1-ulp difference in ``logf`` moves a pair within ~1e-7 of a
-sub-edge into the neighbouring sub-interval.
+sub-edge into the neighbouring sub-interval. Kernel B is held against
+the plain segment sum on long runs, empty slots, a single slot and rows
+wider than one block.
 """
 
 import numpy as np
@@ -146,6 +149,16 @@ VARIANTS = {
     "cumulative": None,
     "direct": (([0.05, 0.12, 0.3], [0.2, 0.5, 1.0]), "deg"),
     "arcsine": (([0.05, 0.4], [0.5, 1.35]), "rad"),
+    # ten overlapping scales: 18 above-entries per bin, 20 counting edges
+    "many": (
+        (
+            [0.05, 0.061, 0.0745, 0.0909, 0.1109, 0.1353, 0.1651, 0.2015,
+             0.2458, 0.3],
+            [0.6, 0.6859, 0.7841, 0.8963, 1.0246, 1.1712, 1.3389, 1.5305,
+             1.7496, 2.0],
+        ),
+        "deg",
+    ),
 }
 
 
@@ -175,7 +188,8 @@ def variant_inputs(rng, variant, cols_binned, *, num_bins=3, num_patches=5):
         )
         table = edges.direct.combined_table()
         direct = edges.direct.spec
-        assert direct[3] is (variant == "direct")
+        assert direct[3] is (variant != "arcsine")
+        assert (max(direct[1:3]) > 16) is (variant == "many")
         max_angle = edges.max_angle
     radii = np.full(num_patches, np.deg2rad(25.0))
     linkage = build_linkage(centers, radii, max_angle * 1.000001)
@@ -212,7 +226,8 @@ def test_variants_match_plain_versions(device, variant, cols_binned):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     name = cuda_paircount.variant_name(cols_binned, direct)
-    assert cuda_paircount.launch_counts[name] == 2
+    launches = -(-first.shape[2] // cuda_paircount.MAX_EDGES_PER_LAUNCH)
+    assert cuda_paircount.launch_counts[name] == 2 * launches
     assert plain.abs().max() > 0 and (plain < 0).any()  # signed weights
     assert_close(first, plain, rtol=1e-6 if direct is None else 1e-5)
 
@@ -232,3 +247,59 @@ def test_binned_direct_engine_matches_plain_engine(device):
     np.testing.assert_allclose(
         kernel, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max()
     )
+
+
+@pytest.mark.parametrize(
+    "runs, width",
+    [
+        ([2000, 0, 1500, 1, 0], 44),  # long runs and empty slots
+        ([1777], 22),  # a single slot
+        ([0, 0], 22),  # no entries at all
+        ([300, 2, 0, 41], 300),  # rows wider than one block
+    ],
+)
+def test_segment_sum_matches_plain_version(device, runs, width):
+    gen = torch.Generator(device=device).manual_seed(len(runs) * width)
+    num_slots = len(runs)
+    slot = torch.repeat_interleave(
+        torch.arange(num_slots, device=device),
+        torch.tensor(runs, device=device),
+    )
+    offsets = torch.zeros(num_slots + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(torch.tensor(runs, device=device), 0)
+    partial = torch.rand(
+        (len(slot), 1, width), generator=gen, device=device
+    ) - 0.25
+    cuda_paircount.reset_launch_counts()
+    first = cuda_paircount.segment_sum(partial, slot, offsets, num_slots)
+    second = cuda_paircount.segment_sum(partial, slot, offsets, num_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert cuda_paircount.launch_counts["paircount_segment_sum"] == 2
+    # against the plain version in float64: the kernel sums in another
+    # order than list order, and over runs this long two float32 orders
+    # differ by more than the tolerance
+    expected = segment_sum_torch(partial.double(), slot, num_slots)
+    assert_close(first.double(), expected)
+    assert torch.all(first[torch.tensor(runs, device=device) == 0] == 0.0)
+
+
+def test_entry_layout_too_large_for_shared_memory_is_refused(device):
+    """The direct kernel holds its weight table and entries in shared
+    memory; a grid too fine for one block raises instead of falling back."""
+    rng = np.random.default_rng(13)
+    tiles1, tiles2, pairs, _, _ = variant_inputs(rng, "direct", False)
+    (rmin, rmax), unit = VARIANTS["direct"]
+    edges = build_angular_edges(
+        new_scales(rmin, rmax, unit=unit), np.linspace(0.3, 0.8, 3),
+        weight_scale=-1.0, weight_res=20_000, counting="direct",
+    )
+    table = torch.from_numpy(edges.direct.combined_table()).to(device)
+    k = slice(0, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_paircount.paircount_partials(
+            tiles1.device_data(device), tiles2.device_data(device),
+            torch.from_numpy(pairs.tile1[k]).to(device),
+            torch.from_numpy(pairs.tile2[k]).to(device), table,
+            direct=edges.direct.spec,
+        )

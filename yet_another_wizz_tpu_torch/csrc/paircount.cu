@@ -13,36 +13,65 @@
 //   K1.5  signed (kappa) weights: no code of its own; nothing here treats a
 //         weight <= 0 as padding (padding carries weight 0 and adds 0)
 //
-//   A. paircount_partials: one thread block per entry k of the tile-pair
-//      list. The column tile is staged in shared memory; each thread owns
-//      rows of the row tile, gathers its row's thresholds (and, in direct
-//      mode, the row bin's weight parameters) from the table by the row's
-//      bin id (an exact gather) into registers, walks the T columns with
-//      the compensated (hi, lo) squared chord, and counts the weighted
-//      pairs at or below each threshold. The rows are then reduced into the
-//      (bin, edge) block by row weight, in a fixed order, and written to
+//   A. One thread block per entry k of the tile-pair list. The column tile
+//      and the table are staged in shared memory; each thread owns rows of
+//      the row tile, gathers its row's thresholds by the row's bin id (an
+//      exact gather), walks the T columns with the compensated (hi, lo)
+//      squared chord, and counts the weighted pairs at or below each
+//      threshold. The rows are then reduced into the (bin,
+//      edge) block by row weight, in a fixed order, and written to
 //      partial[k]. No float atomics: the result is the same on every run.
+//      - paircount_partials_kernel (cumulative, K1.1/K1.2): bound by float32
+//        issue, 15 operations for the chord, 1 for the column weight and 3
+//        per counting edge per pair; two rows per thread share each column
+//        load.
+//      - paircount_direct_kernel (K1.3/K1.4): every pair that an edge
+//        counts needs its separation weight, log10(theta) -> sub-interval
+//        index -> weight, which costs more issue slots than the counting.
+//        The design issues as few of them as the result allows:
+//        (a) the base weight exp(gc0 + gc1 * idx) takes num_sub values per
+//            bin: the block's prologue fills a shared (bin, idx) table with
+//            the same expf of the same operands, so a pair loads it;
+//        (b) the below/above entries are grouped on the host by (bin,
+//            sub-interval) (ops/gweight.py::entry_layout); a pair walks
+//            only its own sub-interval's entries, usually none, in table
+//            order with the table's predicates, and the entries live in
+//            shared memory, so neither their number nor registers limit
+//            the kernel;
+//        (c) a pair beyond its row's largest threshold of the launch (or,
+//            with binned columns, in another bin) adds 0 to every
+//            accumulator, so its weight is not computed at all.
+//        Only the row's bin and its largest threshold stay per row in
+//        registers beside the accumulators (the bin's thresholds, inv_d
+//        and lo_scaled are loaded from shared memory per weighted pair),
+//        so the direct instances fit 64 registers without spilling (4
+//        blocks of 256 threads per SM). What bounds them is the weight
+//        path of the warps in which any lane's pair is in reach: a warp
+//        runs it for all its lanes when one of them needs it.
 //   B. segment_sum: the pair list is sorted by patch-pair slot, so each
-//      slot owns a contiguous run of partials. One thread per output
-//      element sums its run in list order (the order in which the TPU
-//      kernel revisit-accumulates). A slot without entries gets zero.
+//      slot owns a contiguous run of partials. One block per slot reads its
+//      run in coalesced loads: with W = B * E values per entry and
+//      cols = min(W, 256) columns per pass, the block's 256 / cols groups
+//      of threads take consecutive entries, and thread (group, c) sums
+//      column c of the entries group, group + groups, ... in entry order.
+//      The groups' sums are combined by a fixed pairwise tree (group g
+//      adds group g + h for h = 1, 2, 4, ...). The order of the sum is
+//      therefore fixed by W and the run's length, not list order; two runs
+//      are bitwise equal. A slot without entries gets zero. Bound by device memory
+//      bytes (each partial read once).
 //
 // The source is compiled once per counting mode (-DYAWT_DIRECT=0, 1 or 2:
 // cumulative, direct small-angle, direct arcsine), each build into its own
 // library with the same C interface, so the builds run in parallel. Within
 // a build the variants are template instances: NE (counting edges per
-// launch), COLS_BINNED, and in direct mode ADJ (adjustment entries per
-// side held in registers).
+// launch) and COLS_BINNED.
 //
-// Bound: float32 ALU work per candidate pair: 15 operations for the
-// compensated chord, 1 for the column weight, 3 per counting edge, and in
-// direct mode about 12 (small-angle) or 18 (arcsine) for the weight plus 3
-// per adjustment entry; 512 x 512 pairs per tile pair. Device memory
-// traffic is 32 B per point per tile pair. The arithmetic uses
-// __fsub_rn / __fadd_rn / __fmul_rn and the library is built with
-// --fmad=false and without fast-math, so no FMA contraction or approximate
-// logf/expf changes its rounding: it matches the plain PyTorch version
-// operation for operation, up to the order of float32 sums.
+// Numerics: the arithmetic uses __fsub_rn / __fadd_rn / __fmul_rn and the
+// library is built with --fmad=false and without fast-math, so no FMA
+// contraction or approximate logf/expf/sqrtf changes its rounding, and
+// denormals are kept: it matches the plain PyTorch version operation for
+// operation, up to the order of float32 sums, and (a)-(c) leave every
+// pair's contribution bit for bit as the per-pair evaluation gives it.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +84,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 2;
 constexpr int kWarp = 32;
+constexpr int kDirectMinBlocks = 4;  // blocks per SM: at most 64 registers
+constexpr int kSegmentThreads = 256;
+// returned instead of a CUDA error when a launch needs more shared memory
+// than one block may have
+constexpr int kErrorSharedMemory = -1;
 
 constexpr int kCumulative = 0;
 constexpr int kSmallAngle = 1;
@@ -75,8 +109,10 @@ constexpr float kH4 = 0.014413456335465801f;
 // asin(s) = pi/2 - 2 asin(sqrt((1 - s) / 2)) above.
 __device__ __forceinline__ float asin_f32(float s) {
   const bool big = s > 0.5f;
-  const float t =
-      big ? sqrtf(fmaxf(__fmul_rn(0.5f, __fsub_rn(1.0f, s)), 0.0f)) : s;
+  float t = s;
+  if (big) {
+    t = sqrtf(fmaxf(__fmul_rn(0.5f, __fsub_rn(1.0f, s)), 0.0f));
+  }
   const float z = __fmul_rn(t, t);
   float p = __fmul_rn(4.2163199048e-2f, z);
   p = __fmul_rn(__fadd_rn(p, 2.4181311049e-2f), z);
@@ -107,76 +143,86 @@ __device__ __forceinline__ float log10_theta(float chord2) {
   }
 }
 
-// Per-row weight parameters of the direct mode, for ADJ below- and ADJ
-// above-entries (unused entries carry k = -1, which no index equals).
-template <int ADJ>
-struct DirectRow {
-  float inv_d, lo_scaled, gc0, gc1;
-  float bk[ADJ], bt[ADJ], bv[ADJ];
-  float ak[ADJ], at[ADJ], av[ADJ];
-};
-
-template <>
-struct DirectRow<0> {};
-
-template <int NE, bool COLS_BINNED, int DIRECT, int ADJ>
-__global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
-    const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
-    const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
-    const int* __restrict__ tile1,     // (P,) row tile of each pair
-    const int* __restrict__ tile2,     // (P,) column tile of each pair
-    const float* __restrict__ table,   // (B, W): E thresholds [+ parameters]
-    int num_bins, int table_width, int num_edges, int edge0, int num_group,
-    int tile_size, int num_grid, int num_below, int num_above,
-    float* __restrict__ partial) {     // (P, B, E)
-  constexpr int kParamWidth = DIRECT == kCumulative ? 0 : 4 + 6 * ADJ;
-  extern __shared__ float4 smem[];
-  float4* col_a = smem;              // (T) x_hi, y_hi, z_hi, weight
-  float4* col_b = smem + tile_size;  // (T) x_lo, y_lo, z_lo, bin
-  float* row_val = reinterpret_cast<float*>(smem + 2 * tile_size);  // (T, NE)
-  int* row_bin = reinterpret_cast<int*>(row_val + tile_size * NE);  // (T)
-  float* thr_s = reinterpret_cast<float*>(row_bin + tile_size);     // (B, NE)
-  float* par_s = thr_s + num_bins * NE;  // (B, kParamWidth), direct mode
-
-  const long long k = blockIdx.x;
-  const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
-  const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
-
+// The column tile into shared memory: col_a = (x_hi, y_hi, z_hi, weight),
+// col_b = (x_lo, y_lo, z_lo, bin).
+__device__ __forceinline__ void stage_columns(const float* __restrict__ cols,
+                                              int tile_size, float4* col_a,
+                                              float4* col_b) {
   for (int j = threadIdx.x; j < tile_size; j += blockDim.x) {
     col_a[j] = make_float4(cols[j], cols[tile_size + j],
                            cols[2 * tile_size + j], cols[6 * tile_size + j]);
     col_b[j] = make_float4(cols[3 * tile_size + j], cols[4 * tile_size + j],
                            cols[5 * tile_size + j], cols[7 * tile_size + j]);
   }
-  // edges beyond this launch's group get a negative threshold: a squared
-  // chord is never below it, and those slots are never written
+}
+
+// The launch's edge group of the table into shared memory, (B, NE). Edges
+// beyond the group get a negative threshold: a squared chord is never
+// below it, and those slots are never written.
+template <int NE>
+__device__ __forceinline__ void stage_thresholds(const float* __restrict__ table,
+                                                 int num_bins, int table_width,
+                                                 int edge0, int num_group,
+                                                 float* thr_s) {
   for (int i = threadIdx.x; i < num_bins * NE; i += blockDim.x) {
     const int b = i / NE;
     const int e = i % NE;
     thr_s[i] = e < num_group ? table[b * table_width + edge0 + e] : -1.0f;
   }
-  if constexpr (DIRECT != kCumulative) {
-    // [inv_d, lo_scaled, gc0, gc1, below (k, thr, g) x ADJ, above x ADJ],
-    // padded from the table's num_below / num_above entries with k = -1
-    for (int i = threadIdx.x; i < num_bins * kParamWidth; i += blockDim.x) {
-      const int b = i / kParamWidth;
-      const int c = i % kParamWidth;
-      const float* src = table + b * table_width + num_edges;
-      float value;
-      if (c < 4) {
-        value = src[c];
-      } else {
-        const int entry = (c - 4) / 3;  // 0 .. 2 * ADJ - 1
-        const int field = (c - 4) % 3;
-        const bool above = entry >= ADJ;
-        const int n = above ? entry - ADJ : entry;
-        const bool used = n < (above ? num_above : num_below);
-        const int col = 4 + 3 * (above ? num_below + n : n) + field;
-        value = used ? src[col] : (field == 0 ? -1.0f : 0.0f);
-      }
-      par_s[i] = value;
+}
+
+// (bin, edge) reduction over the rows in a fixed order: each warp owns
+// whole (bin, edge) entries, each lane a fixed stride of rows, then a
+// fixed shuffle tree.
+template <int NE>
+__device__ __forceinline__ void reduce_rows(const float* row_val,
+                                            const int* row_bin, int tile_size,
+                                            int num_bins, int num_edges,
+                                            int edge0, int num_group,
+                                            long long k,
+                                            float* __restrict__ partial) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int num_warps = blockDim.x / kWarp;
+  for (int be = warp; be < num_bins * num_group; be += num_warps) {
+    const int b = be / num_group;
+    const int e = be % num_group;
+    float s = 0.0f;
+    for (int r = lane; r < tile_size; r += kWarp) {
+      s = __fadd_rn(s, row_bin[r] == b ? row_val[r * NE + e] : 0.0f);
+    }
+#pragma unroll
+    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, offset));
+    }
+    if (lane == 0) {
+      partial[(k * num_bins + b) * num_edges + edge0 + e] = s;
     }
   }
+}
+
+template <int NE, bool COLS_BINNED>
+__global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
+    const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
+    const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
+    const int* __restrict__ tile1,     // (P,) row tile of each pair
+    const int* __restrict__ tile2,     // (P,) column tile of each pair
+    const float* __restrict__ table,   // (B, W): E thresholds
+    int num_bins, int table_width, int num_edges, int edge0, int num_group,
+    int tile_size,
+    float* __restrict__ partial) {     // (P, B, E)
+  extern __shared__ float4 smem[];
+  float4* col_a = smem;              // (T)
+  float4* col_b = smem + tile_size;  // (T)
+  float* row_val = reinterpret_cast<float*>(smem + 2 * tile_size);  // (T, NE)
+  int* row_bin = reinterpret_cast<int*>(row_val + tile_size * NE);  // (T)
+  float* thr_s = reinterpret_cast<float*>(row_bin + tile_size);     // (B, NE)
+
+  const long long k = blockIdx.x;
+  const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
+  const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
+  stage_columns(cols, tile_size, col_a, col_b);
+  stage_thresholds<NE>(table, num_bins, table_width, edge0, num_group, thr_s);
   __syncthreads();
 
   for (int base = 0; base < tile_size; base += kRowsPerThread * blockDim.x) {
@@ -185,7 +231,6 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     float zr[kRowsPerThread];
     float thr[kRowsPerThread][NE];
     float acc[kRowsPerThread][NE];
-    DirectRow<DIRECT == kCumulative ? 0 : ADJ> dp[kRowsPerThread];
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) {
       const int row = base + r * blockDim.x + threadIdx.x;
@@ -203,22 +248,6 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
       for (int e = 0; e < NE; ++e) {
         thr[r][e] = valid ? thr_s[bin * NE + e] : -1.0f;
         acc[r][e] = 0.0f;
-      }
-      if constexpr (DIRECT != kCumulative) {
-        const float* p = par_s + bin * kParamWidth;
-        dp[r].inv_d = p[0];
-        dp[r].lo_scaled = p[1];
-        dp[r].gc0 = p[2];
-        dp[r].gc1 = p[3];
-#pragma unroll
-        for (int n = 0; n < ADJ; ++n) {
-          dp[r].bk[n] = p[4 + 3 * n];
-          dp[r].bt[n] = p[5 + 3 * n];
-          dp[r].bv[n] = p[6 + 3 * n];
-          dp[r].ak[n] = p[4 + 3 * (ADJ + n)];
-          dp[r].at[n] = p[5 + 3 * (ADJ + n)];
-          dp[r].av[n] = p[6 + 3 * (ADJ + n)];
-        }
       }
     }
 
@@ -239,24 +268,6 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
         if constexpr (COLS_BINNED) {
           // exact compare of the float bin lanes
           w = c.w == zr[r] ? w : 0.0f;
-        }
-        if constexpr (DIRECT != kCumulative) {
-          const float l10 = log10_theta<DIRECT>(chord2);
-          float idx = floorf(__fsub_rn(__fmul_rn(l10, dp[r].inv_d),
-                                       dp[r].lo_scaled));
-          idx = fminf(fmaxf(idx, 0.0f), static_cast<float>(num_grid - 1));
-          float g = expf(__fadd_rn(dp[r].gc0, __fmul_rn(dp[r].gc1, idx)));
-#pragma unroll
-          for (int n = 0; n < ADJ; ++n) {
-            g = (idx == dp[r].bk[n] && chord2 <= dp[r].bt[n]) ? dp[r].bv[n] : g;
-          }
-          // ascending above-entries: a pair lands on the highest limit
-          // below it
-#pragma unroll
-          for (int n = 0; n < ADJ; ++n) {
-            g = (idx == dp[r].ak[n] && chord2 > dp[r].at[n]) ? dp[r].av[n] : g;
-          }
-          w = __fmul_rn(w, g);
         }
 #pragma unroll
         for (int e = 0; e < NE; ++e) {
@@ -279,28 +290,199 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     }
   }
   __syncthreads();
+  reduce_rows<NE>(row_val, row_bin, tile_size, num_bins, num_edges, edge0,
+                  num_group, k, partial);
+}
 
-  // (bin, edge) reduction over the rows in a fixed order: each warp owns
-  // whole (bin, edge) entries, each lane a fixed stride of rows, then a
-  // fixed shuffle tree
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int num_warps = blockDim.x / kWarp;
-  for (int be = warp; be < num_bins * num_group; be += num_warps) {
-    const int b = be / num_group;
-    const int e = be % num_group;
-    float s = 0.0f;
-    for (int r = lane; r < tile_size; r += kWarp) {
-      s = __fadd_rn(s, row_bin[r] == b ? row_val[r * NE + e] : 0.0f);
-    }
+// The NE thresholds of one bin from shared memory in 16- or 8-byte loads
+// (NE is even and the bin's row is aligned to its width).
+template <int NE>
+__device__ __forceinline__ void load_thresholds(const float* thr,
+                                                float (&out)[NE]) {
+  if constexpr (NE % 4 == 0) {
 #pragma unroll
-    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
-      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, offset));
+    for (int q = 0; q < NE / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(thr)[q];
+      out[4 * q] = v.x;
+      out[4 * q + 1] = v.y;
+      out[4 * q + 2] = v.z;
+      out[4 * q + 3] = v.w;
     }
-    if (lane == 0) {
-      partial[(k * num_bins + b) * num_edges + edge0 + e] = s;
+  } else {
+#pragma unroll
+    for (int q = 0; q < NE / 2; ++q) {
+      const float2 v = reinterpret_cast<const float2*>(thr)[q];
+      out[2 * q] = v.x;
+      out[2 * q + 1] = v.y;
     }
   }
+}
+
+// The direct weight of one pair and its addition to a row's accumulators.
+// The bin's thresholds, inv_d and lo_scaled are loaded here, not held per
+// row, to keep the registers of two rows within 64.
+template <int NE, int DIRECT>
+__device__ __forceinline__ void add_weighted(float chord2, float w_col,
+                                             const float* thr_bin,
+                                             float2 coef,
+                                             const int4* span_bin,
+                                             const float2* entry_s,
+                                             float last_sub,
+                                             float (&acc)[NE]) {
+  const float l10 = log10_theta<DIRECT>(chord2);
+  float idx = floorf(__fsub_rn(__fmul_rn(l10, coef.x), coef.y));
+  idx = fminf(fmaxf(idx, 0.0f), last_sub);
+  const int4 span = span_bin[static_cast<int>(idx)];
+  float g = __int_as_float(span.x);
+  // the sub-interval's below-entries, then its ascending above-entries (a
+  // pair lands on the highest limit below it)
+#pragma unroll 1
+  for (int n = span.y; n < span.z; ++n) {
+    const float2 entry = entry_s[n];
+    g = chord2 <= entry.x ? entry.y : g;
+  }
+#pragma unroll 1
+  for (int n = span.z; n < span.w; ++n) {
+    const float2 entry = entry_s[n];
+    g = chord2 > entry.x ? entry.y : g;
+  }
+  const float w = __fmul_rn(w_col, g);
+  float thr[NE];
+  load_thresholds<NE>(thr_bin, thr);
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    acc[e] = __fadd_rn(acc[e], chord2 <= thr[e] ? w : 0.0f);
+  }
+}
+
+template <int NE, bool COLS_BINNED, int DIRECT>
+__global__ void __launch_bounds__(kThreads, kDirectMinBlocks)
+paircount_direct_kernel(
+    const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
+    const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
+    const int* __restrict__ tile1,     // (P,) row tile of each pair
+    const int* __restrict__ tile2,     // (P,) column tile of each pair
+    const float* __restrict__ table,   // (B, W): E thresholds + parameters
+    const int* __restrict__ layout,    // spans (B, S, 3), entries (N, 2)
+    int num_bins, int table_width, int num_edges, int edge0, int num_group,
+    int tile_size, int num_sub, int num_entries,
+    float* __restrict__ partial) {     // (P, B, E)
+  // rows per thread: two rows share each column load while their
+  // thresholds and accumulators fit the register budget
+  constexpr int kRows = NE <= 4 ? 2 : 1;
+  const int num_spans = num_bins * num_sub;
+  extern __shared__ float4 smem[];
+  float4* col_a = smem;              // (T)
+  float4* col_b = smem + tile_size;  // (T)
+  // (B * S) base weight bits, start, split, stop of the entries
+  int4* span_s = reinterpret_cast<int4*>(smem + 2 * tile_size);
+  float* thr_s = reinterpret_cast<float*>(span_s + num_spans);  // (B, NE)
+  float2* entry_s = reinterpret_cast<float2*>(thr_s + num_bins * NE);  // (N)
+  float2* coef_s = entry_s + num_entries;  // (B) inv_d, lo_scaled
+  float* row_val = reinterpret_cast<float*>(coef_s + num_bins);     // (T, NE)
+  int* row_bin = reinterpret_cast<int*>(row_val + tile_size * NE);  // (T)
+
+  const long long k = blockIdx.x;
+  const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
+  const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
+  stage_columns(cols, tile_size, col_a, col_b);
+  stage_thresholds<NE>(table, num_bins, table_width, edge0, num_group, thr_s);
+  // (a): the base weight of each (bin, sub-interval), from the operands a
+  // pair in it gives expf; (b): its span of entries
+  for (int s = threadIdx.x; s < num_spans; s += blockDim.x) {
+    const float* p = table + (s / num_sub) * table_width + num_edges;
+    const float idx = static_cast<float>(s % num_sub);
+    const float g = expf(__fadd_rn(p[2], __fmul_rn(p[3], idx)));
+    span_s[s] = make_int4(__float_as_int(g), layout[3 * s], layout[3 * s + 1],
+                          layout[3 * s + 2]);
+  }
+  const int* entries = layout + 3 * num_spans;
+  for (int n = threadIdx.x; n < num_entries; n += blockDim.x) {
+    entry_s[n] = make_float2(__int_as_float(entries[2 * n]),
+                             __int_as_float(entries[2 * n + 1]));
+  }
+  for (int b = threadIdx.x; b < num_bins; b += blockDim.x) {
+    const float* p = table + b * table_width + num_edges;
+    coef_s[b] = make_float2(p[0], p[1]);
+  }
+  __syncthreads();
+
+  const float last_sub = static_cast<float>(num_sub - 1);
+  for (int base = 0; base < tile_size; base += kRows * blockDim.x) {
+    float xh[kRows], yh[kRows], zh[kRows];
+    float xl[kRows], yl[kRows], zl[kRows];
+    float zr[kRows];
+    float acc[kRows][NE];
+    float reach[kRows];  // the row's largest threshold of this launch
+    int bin[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = base + r * blockDim.x + threadIdx.x;
+      const bool valid = row < tile_size;
+      const int at = valid ? row : 0;
+      xh[r] = rows[at];
+      yh[r] = rows[tile_size + at];
+      zh[r] = rows[2 * tile_size + at];
+      xl[r] = rows[3 * tile_size + at];
+      yl[r] = rows[4 * tile_size + at];
+      zl[r] = rows[5 * tile_size + at];
+      zr[r] = rows[7 * tile_size + at];
+      bin[r] = min(max(static_cast<int>(zr[r]), 0), num_bins - 1);
+      reach[r] = -1.0f;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        acc[r][e] = 0.0f;
+        reach[r] = fmaxf(reach[r], thr_s[bin[r] * NE + e]);
+      }
+      reach[r] = valid ? reach[r] : -1.0f;
+    }
+
+    for (int j = 0; j < tile_size; ++j) {
+      const float4 a = col_a[j];
+      const float4 c = col_b[j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        // compensated difference: (hi1 - hi2) + (lo1 - lo2)
+        const float dx = __fadd_rn(__fsub_rn(xh[r], a.x), __fsub_rn(xl[r], c.x));
+        const float dy = __fadd_rn(__fsub_rn(yh[r], a.y), __fsub_rn(yl[r], c.y));
+        const float dz = __fadd_rn(__fsub_rn(zh[r], a.z), __fsub_rn(zl[r], c.z));
+        float chord2 = __fmul_rn(dx, dx);
+        chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
+        chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
+
+        // (c): a pair no edge counts (beyond the row's largest threshold
+        // or, with binned columns, in another bin) would add 0 to every
+        // accumulator, and an accumulator that starts at +0 is never -0,
+        // so adding +0 is the identity: its weight is skipped
+        bool counted = chord2 <= reach[r];
+        if constexpr (COLS_BINNED) {
+          // exact compare of the float bin lanes
+          counted = counted && c.w == zr[r];
+        }
+        if (counted) {
+          add_weighted<NE, DIRECT>(chord2, a.w, thr_s + bin[r] * NE,
+                                   coef_s[bin[r]], span_s + bin[r] * num_sub,
+                                   entry_s, last_sub, acc[r]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = base + r * blockDim.x + threadIdx.x;
+      if (row < tile_size) {
+        const float w_row = rows[6 * tile_size + row];
+        row_bin[row] = bin[r];
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          row_val[row * NE + e] = __fmul_rn(w_row, acc[r][e]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  reduce_rows<NE>(row_val, row_bin, tile_size, num_bins, num_edges, edge0,
+                  num_group, k, partial);
 }
 
 struct Launch {
@@ -311,69 +493,122 @@ struct Launch {
   long long num_pairs;
   const float* table;
   int num_bins, table_width, num_edges, edge0, num_group, tile_size;
-  int num_grid, num_below, num_above;
+  int num_sub;
+  const int* layout;
+  int num_entries;
   float* partial;
   cudaStream_t stream;
 };
 
-template <int NE, bool COLS_BINNED, int ADJ>
-int launch_partials(const Launch& a) {
-  constexpr int kParamWidth = YAWT_DIRECT == kCumulative ? 0 : 4 + 6 * ADJ;
-  const size_t smem = 2 * a.tile_size * sizeof(float4) +
-                      static_cast<size_t>(a.tile_size) * NE * sizeof(float) +
-                      a.tile_size * sizeof(int) +
-                      static_cast<size_t>(a.num_bins) * (NE + kParamWidth) *
-                          sizeof(float);
-  auto kernel = paircount_partials_kernel<NE, COLS_BINNED, YAWT_DIRECT, ADJ>;
-  cudaError_t status = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  int device = 0;
+  int limit = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
   if (status != cudaSuccess) return static_cast<int>(status);
-  kernel<<<static_cast<unsigned int>(a.num_pairs), kThreads, smem,
-           a.stream>>>(a.lanes1, a.lanes2, a.tile1, a.tile2, a.table,
-                       a.num_bins, a.table_width, a.num_edges, a.edge0,
-                       a.num_group, a.tile_size, a.num_grid, a.num_below,
-                       a.num_above, a.partial);
+  if (smem > static_cast<size_t>(limit)) return kErrorSharedMemory;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <int NE, bool COLS_BINNED>
+int launch_partials(const Launch& a) {
+  const size_t tile = static_cast<size_t>(a.tile_size);
+  const size_t bins = static_cast<size_t>(a.num_bins);
+  size_t smem = 2 * tile * sizeof(float4) + tile * NE * sizeof(float) +
+                tile * sizeof(int) + bins * NE * sizeof(float);
+  const unsigned int blocks = static_cast<unsigned int>(a.num_pairs);
+  int status;
+  if constexpr (YAWT_DIRECT == kCumulative) {
+    auto kernel = paircount_partials_kernel<NE, COLS_BINNED>;
+    status = prepare(kernel, smem);
+    if (status != 0) return status;
+    kernel<<<blocks, kThreads, smem, a.stream>>>(
+        a.lanes1, a.lanes2, a.tile1, a.tile2, a.table, a.num_bins,
+        a.table_width, a.num_edges, a.edge0, a.num_group, a.tile_size,
+        a.partial);
+  } else {
+    smem += bins * a.num_sub * sizeof(int4) +
+            static_cast<size_t>(a.num_entries) * sizeof(float2) +
+            bins * sizeof(float2);
+    auto kernel = paircount_direct_kernel<NE, COLS_BINNED, YAWT_DIRECT>;
+    status = prepare(kernel, smem);
+    if (status != 0) return status;
+    kernel<<<blocks, kThreads, smem, a.stream>>>(
+        a.lanes1, a.lanes2, a.tile1, a.tile2, a.table, a.layout, a.num_bins,
+        a.table_width, a.num_edges, a.edge0, a.num_group, a.tile_size,
+        a.num_sub, a.num_entries, a.partial);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool COLS_BINNED, int ADJ>
+template <bool COLS_BINNED>
 int dispatch_edges(const Launch& a) {
   if constexpr (YAWT_DIRECT == kCumulative) {
-    if (a.num_group <= 1) return launch_partials<1, COLS_BINNED, ADJ>(a);
+    if (a.num_group <= 1) return launch_partials<1, COLS_BINNED>(a);
   }
-  if (a.num_group <= 2) return launch_partials<2, COLS_BINNED, ADJ>(a);
-  if (a.num_group <= 4) return launch_partials<4, COLS_BINNED, ADJ>(a);
-  if (a.num_group <= 8) return launch_partials<8, COLS_BINNED, ADJ>(a);
-  return launch_partials<16, COLS_BINNED, ADJ>(a);
-}
-
-template <bool COLS_BINNED>
-int dispatch_adjustments(const Launch& a) {
-  if constexpr (YAWT_DIRECT == kCumulative) {
-    return dispatch_edges<COLS_BINNED, 0>(a);
-  } else {
-    const int entries = a.num_below > a.num_above ? a.num_below : a.num_above;
-    if (entries <= 4) return dispatch_edges<COLS_BINNED, 4>(a);
-    return dispatch_edges<COLS_BINNED, 16>(a);
-  }
+  if (a.num_group <= 2) return launch_partials<2, COLS_BINNED>(a);
+  if (a.num_group <= 4) return launch_partials<4, COLS_BINNED>(a);
+  if (a.num_group <= 8) return launch_partials<8, COLS_BINNED>(a);
+  return launch_partials<16, COLS_BINNED>(a);
 }
 
 #if YAWT_DIRECT == 0
-__global__ void segment_sum_kernel(
+__global__ void __launch_bounds__(kSegmentThreads) segment_sum_kernel(
     const float* __restrict__ partial,       // (P, width)
     const long long* __restrict__ offsets,   // (S + 1,) run bounds
-    long long num_slots, int width,
+    int width,
     float* __restrict__ out) {               // (S, width)
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_slots * width) return;
-  const long long slot = i / width;
-  const long long column = i % width;
-  float acc = 0.0f;
-  for (long long k = offsets[slot]; k < offsets[slot + 1]; ++k) {
-    acc = __fadd_rn(acc, partial[k * width + column]);
+  __shared__ float sums[kSegmentThreads];
+  const long long slot = blockIdx.x;
+  const long long begin = offsets[slot];
+  const long long end = offsets[slot + 1];
+  const int cols = min(width, static_cast<int>(blockDim.x));
+  const int groups = blockDim.x / cols;
+  const int group = threadIdx.x / cols;
+  const int lane = threadIdx.x % cols;
+  const long long stride = static_cast<long long>(groups) * width;
+  for (int c0 = 0; c0 < width; c0 += cols) {
+    const int column = c0 + lane;
+    const bool active = group < groups && column < width;
+    float acc = 0.0f;
+    if (active) {
+      long long n = begin + group;
+      const float* p = partial + n * width + column;
+      // four loads in flight, added in entry order
+      for (; n + 3 * groups < end; n += 4 * groups, p += 4 * stride) {
+        const float v0 = p[0];
+        const float v1 = p[stride];
+        const float v2 = p[2 * stride];
+        const float v3 = p[3 * stride];
+        acc = __fadd_rn(acc, v0);
+        acc = __fadd_rn(acc, v1);
+        acc = __fadd_rn(acc, v2);
+        acc = __fadd_rn(acc, v3);
+      }
+      for (; n < end; n += groups, p += stride) {
+        acc = __fadd_rn(acc, *p);
+      }
+    }
+    sums[threadIdx.x] = acc;
+    __syncthreads();
+    for (int h = 1; h < groups; h *= 2) {
+      if (active && group % (2 * h) == 0 && group + h < groups) {
+        sums[threadIdx.x] = __fadd_rn(sums[threadIdx.x],
+                                      sums[threadIdx.x + h * cols]);
+      }
+      __syncthreads();
+    }
+    if (active && group == 0) {
+      out[slot * width + column] = sums[threadIdx.x];
+    }
+    __syncthreads();
   }
-  out[i] = acc;
 }
 #endif
 
@@ -388,37 +623,36 @@ int yawt_paircount_mode() { return YAWT_DIRECT; }
 // One launch of kernel A for the counting edges [edge0, edge0 + num_group)
 // of a (num_bins, table_width) table whose first num_edges columns are
 // squared-chord thresholds and, in direct mode, whose remaining columns
-// are the weight parameters [inv_d, lo_scaled, gc0, gc1] followed by
-// num_below + num_above (k, thr, g) entries (num_grid uniform
-// sub-intervals). 1 <= num_group <= 16; in direct mode num_below and
-// num_above are at most 16. Returns cudaGetLastError() after the launch,
-// or the error of raising the kernel's shared-memory limit (a tile or
-// table too large for one block).
+// are the weight parameters [inv_d, lo_scaled, gc0, gc1, entries...]
+// (num_sub uniform sub-intervals). In direct mode, layout holds the
+// int32 (num_bins, num_sub, 3) entry spans followed by the num_entries
+// (thr, g) float32 entries (ops/gweight.py::EntryLayout.packed); the
+// cumulative build ignores num_sub, layout and num_entries.
+// 1 <= num_group <= 16. Returns cudaGetLastError() after the launch, the
+// error of raising the kernel's shared-memory limit, or -1 when the launch
+// needs more shared memory than one block may have (a tile, table or
+// entry layout too large).
 int yawt_paircount_partials(const float* lanes1, const float* lanes2,
                             const int* tile1, const int* tile2,
                             long long num_pairs, const float* table,
                             int num_bins, int table_width, int num_edges,
                             int edge0, int num_group, int tile_size,
-                            int cols_binned, int num_grid, int num_below,
-                            int num_above, float* partial, void* stream) {
+                            int cols_binned, int num_sub, const int* layout,
+                            int num_entries, float* partial, void* stream) {
   const Launch a{lanes1, lanes2, tile1, tile2, num_pairs, table,
                  num_bins, table_width, num_edges, edge0, num_group,
-                 tile_size, num_grid, num_below, num_above, partial,
+                 tile_size, num_sub, layout, num_entries, partial,
                  static_cast<cudaStream_t>(stream)};
-  return cols_binned ? dispatch_adjustments<true>(a)
-                     : dispatch_adjustments<false>(a);
+  return cols_binned ? dispatch_edges<true>(a) : dispatch_edges<false>(a);
 }
 
 #if YAWT_DIRECT == 0
 // One launch of kernel B. Returns cudaGetLastError() after the launch.
 int yawt_segment_sum(const float* partial, const long long* offsets,
                      long long num_slots, int width, float* out, void* stream) {
-  const long long total = num_slots * width;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  segment_sum_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      partial, offsets, num_slots, width, out);
+  segment_sum_kernel<<<static_cast<unsigned int>(num_slots), kSegmentThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      partial, offsets, width, out);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

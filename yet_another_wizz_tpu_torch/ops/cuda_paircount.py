@@ -8,15 +8,32 @@ _paircount_kernel`` in all of its variants (ROADMAP K1.1-K1.5):
   cumulatively or with direct separation weights (small-angle or arcsine
   index), against unbinned or binned columns;
 - ``segment_sum`` (kernel B) sums each slot's contiguous run of partials
-  in list order into ``out[slot]``.
+  into ``out[slot]``.
 
-Together they are deterministic: no float atomics, fixed summation order.
-They are bound by float32 ALU work (the compensated chord, a compare and
-an add per counting edge, and in direct mode the separation weight per
-pair). The TPU kernel's row-side precompute (per-row thresholds gathered
-into device memory ahead of the kernel) is dropped: kernel A gathers each
-row's thresholds and weight parameters from the table in shared memory
-once per tile pair.
+Together they are deterministic: no float atomics, a summation order fixed
+by the shapes alone. Kernel A is bound by float32 issue: the compensated
+chord, a compare and an add per counting edge, and in direct mode the
+separation weight of each pair that an edge counts. Its direct instances
+take the base weight of a pair's (bin, sub-interval) from a table the
+block fills in shared memory with the same ``expf``, walk only the
+below/above entries of the pair's own sub-interval (grouped from the table
+itself by :func:`~yet_another_wizz_tpu_torch.ops.gweight.entry_layout`,
+once per table, held in shared memory, any number of them), and skip the weight of a pair beyond
+its row's largest threshold or, with binned columns, in another bin: such
+a pair adds 0 to every count. The TPU kernel's row-side precompute
+(per-row thresholds gathered into device memory ahead of the kernel) is
+dropped: kernel A gathers each row's thresholds from the table in shared
+memory once per tile pair.
+
+Kernel B is bound by device memory bytes. One block per slot reads the
+slot's run in coalesced loads. With ``W = B * E`` values per entry and
+``cols = min(W, 256)``, the block's ``256 // cols`` groups of threads take
+consecutive entries: group ``g`` sums entries ``g, g + groups, ...`` of
+the run in entry order, per column, and the groups' sums are combined by a
+fixed pairwise tree (group ``g`` adds group ``g + h`` for ``h = 1, 2, 4,
+...``). The order of the sum is therefore fixed by ``W`` and the run's
+length; it is not list order, which the plain version follows on the CPU.
+Two runs are bitwise equal.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use, once per
 counting mode and in parallel, into ``build/yawt_torch_kernels/`` and
@@ -31,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING
@@ -38,7 +56,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from yet_another_wizz_tpu_torch.ops.gweight import counting_width
+from yet_another_wizz_tpu_torch.ops.gweight import counting_width, entry_layout
 from yet_another_wizz_tpu_torch.ops.paircount import (
     partial_counts_torch,
     segment_sum_torch,
@@ -81,9 +99,9 @@ MAX_EDGES_PER_LAUNCH = 16
 accumulators are sized at compile time); wider tables take one launch per
 group."""
 
-MAX_ADJUSTMENTS = 16
-"""Below- and above-entries per side the direct-mode kernels hold in
-registers."""
+_SHARED_MEMORY_EXCEEDED = -1
+"""Status of a kernel-A launch that needs more shared memory than one block
+may have."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
@@ -133,7 +151,7 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
         raise RuntimeError(f"{path} was not built for counting mode {mode}")
     lib.yawt_paircount_partials.argtypes = [
         ptr, ptr, ptr, ptr, i64, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, ptr, i32, ptr, ptr,
     ]
     lib.yawt_paircount_partials.restype = i32
     if mode == 0:
@@ -202,6 +220,34 @@ def _table_layout(table: torch.Tensor, direct: tuple | None) -> int:
     return num_edges
 
 
+_layouts: dict[int, tuple[int, tuple, torch.Tensor]] = {}
+"""Entry layouts by ``id`` of the table they were derived from, with the
+table's version counter and direct specification."""
+
+
+def _device_layout(
+    table: torch.Tensor, num_edges: int, direct: tuple
+) -> torch.Tensor:
+    """The entries of a combined direct-mode table grouped by
+    :func:`~yet_another_wizz_tpu_torch.ops.gweight.entry_layout`, as its
+    packed int32 buffer on the table's device: the only source of the
+    layout the kernel reads. Derived from a host copy of the table on its
+    first use and cached until the table is freed or changed in place."""
+    key = id(table)
+    cached = _layouts.get(key)
+    if cached is not None and cached[:2] == (table._version, direct):
+        return cached[2]
+    if cached is None:
+        weakref.finalize(table, _layouts.pop, key, None)
+    layout = entry_layout(
+        table[:, num_edges:].cpu().numpy(), num_sub=direct[0],
+        num_below=direct[1], num_above=direct[2],
+    )
+    buffer = torch.from_numpy(layout.packed()).to(table.device)
+    _layouts[key] = (table._version, direct, buffer)
+    return buffer
+
+
 def paircount_partials(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
@@ -219,7 +265,11 @@ def paircount_partials(
     small_angle)``, the ``(B, E + C)`` combined table of
     :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`.
     ``cols_binned`` counts a column only where its bin equals the row's.
-    Launches on the current stream and does not synchronise."""
+    In direct mode the kernel reads the table's entries as the layout of
+    :func:`_device_layout`, derived from this table. Launches on the
+    current stream and does not synchronise (except to derive that layout
+    on a table's first use); raises where the layout does not fit in a
+    block's shared memory."""
     num_edges = _table_layout(chord2_table, direct)
     if lanes1.device.type == "cpu":
         return partial_counts_torch(
@@ -239,14 +289,14 @@ def paircount_partials(
         raise ValueError("lanes must be (N, 8, T) with one tile size T")
     if tile1.shape != tile2.shape:
         raise ValueError("'tile1' and 'tile2' differ in length")
-    num_grid, num_below, num_above = direct[:3] if direct else (0, 0, 0)
-    if max(num_below, num_above) > MAX_ADJUSTMENTS:
-        raise ValueError(
-            f"the direct-mode kernels hold at most {MAX_ADJUSTMENTS} below- "
-            f"and above-entries, got {num_below} and {num_above}"
-        )
     num_pairs = len(tile1)
     num_bins, table_width = chord2_table.shape
+    num_sub, num_entries, layout_ptr = 0, 0, None
+    if direct is not None:
+        num_sub = direct[0]
+        layout = _device_layout(chord2_table, num_edges, direct)
+        num_entries = (len(layout) - 3 * num_bins * num_sub) // 2
+        layout_ptr = layout.data_ptr()
     partial = torch.empty(
         (num_pairs, num_bins, num_edges), dtype=torch.float32, device=device
     )
@@ -264,9 +314,16 @@ def paircount_partials(
                 lanes1.data_ptr(), lanes2.data_ptr(),
                 tile1.data_ptr(), tile2.data_ptr(), num_pairs,
                 chord2_table.data_ptr(), num_bins, table_width, num_edges,
-                edge0, num_group, tile_size, int(cols_binned), num_grid,
-                num_below, num_above, partial.data_ptr(), stream,
+                edge0, num_group, tile_size, int(cols_binned), num_sub,
+                layout_ptr, num_entries, partial.data_ptr(), stream,
             )
+            if status == _SHARED_MEMORY_EXCEEDED:
+                raise ValueError(
+                    f"{name}: tiles of {tile_size} points with {num_bins} "
+                    f"bins x {num_sub} sub-intervals and {num_entries} "
+                    "below/above entries need more shared memory than one "
+                    "block of this card has"
+                )
             _raise_on_error(status, name)
             launch_counts[name] += 1
     return partial
@@ -279,9 +336,10 @@ def segment_sum(
     num_slots: int,
 ) -> torch.Tensor:
     """``(num_slots, B, E)`` float32 sums of the slot-sorted partials
-    (kernel B): slot ``s`` sums ``partial[offsets[s]:offsets[s + 1]]`` in
-    list order, zero for an empty run. ``slot`` feeds the plain version on
-    the CPU, ``offsets`` (int64, ``num_slots + 1``) the kernel."""
+    (kernel B): slot ``s`` sums ``partial[offsets[s]:offsets[s + 1]]``,
+    zero for an empty run, in the fixed order of the module docstring.
+    ``slot`` feeds the plain version on the CPU, ``offsets`` (int64,
+    ``num_slots + 1``) the kernel."""
     if partial.device.type == "cpu":
         return segment_sum_torch(partial, slot, num_slots)
     if partial.device.type != "cuda":

@@ -14,16 +14,24 @@ Grids confined to small angles (every survey-relevant configuration; gate
 straight from the squared chord through one log and a short polynomial,
 no sqrt/arcsine — while wider grids keep the explicit
 ``sqrt -> arcsine -> log`` chain.
+
+:func:`entry_layout` regroups the table's below/above entries by
+(bin, sub-interval), the form in which the direct-mode kernels read them.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 __all__ = [
     "THETA_POLY_MAX",
+    "EntryLayout",
     "apply_direct_weight",
     "counting_width",
+    "entry_layout",
     "num_param_cols",
 ]
 
@@ -67,6 +75,64 @@ def counting_width(num_table_cols: int, direct: tuple | None) -> int:
     if direct is None:
         return num_table_cols
     return num_table_cols - num_param_cols(direct[1], direct[2])
+
+
+class EntryLayout(NamedTuple):
+    """The below/above entries of a direct-mode parameter block, grouped
+    by (bin, sub-interval).
+
+    Attributes:
+        spans: int32 ``(B, num_sub, 3)``: ``start, split, stop`` of each
+            sub-interval's entries; ``entries[start:split]`` are its
+            below-entries, ``entries[split:stop]`` its above-entries, each
+            in table order.
+        entries: float32 ``(N, 2)``: ``(thr_chord2, g)`` of every entry
+            whose ``k`` names a sub-interval of the grid (padding entries,
+            ``k = -1``, are left out: no pair's index equals them).
+    """
+
+    spans: np.ndarray
+    entries: np.ndarray
+
+    def packed(self) -> np.ndarray:
+        """One int32 array, the spans followed by the entries' float32
+        bits: the buffer the kernels copy into shared memory."""
+        return np.concatenate(
+            [self.spans.ravel(), self.entries.view(np.int32).ravel()]
+        )
+
+
+def entry_layout(
+    params: np.ndarray, *, num_sub: int, num_below: int, num_above: int
+) -> EntryLayout:
+    """Group the entries of the ``(B, num_param_cols(...))`` parameter
+    block by (bin, sub-interval). A pair in sub-interval ``k`` of its
+    row's bin then walks only the entries with that ``k``, below-entries
+    first, in table order, which is what :func:`apply_direct_weight`'s
+    walk over all entries leaves in effect (an entry applies only where
+    ``idx == k``, and the later entry wins)."""
+    params = np.asarray(params, np.float32)
+    num_bins = params.shape[0]
+    num_entries = num_below + num_above
+    cols = params[:, 4 : 4 + 3 * num_entries].reshape(num_bins, num_entries, 3)
+    k = cols[..., 0]
+    in_grid = (k >= 0) & (k < num_sub) & (k == np.floor(k))
+    above = np.arange(num_entries) >= num_below
+    bins = np.arange(num_bins)[:, None]
+    # entries sort by (bin, k, below before above); a stable sort keeps
+    # the table order within each group
+    key = ((bins * num_sub + np.where(in_grid, k, 0).astype(np.int64)) * 2
+           + above)[in_grid]
+    order = np.argsort(key, kind="stable")
+    entries = np.ascontiguousarray(cols[in_grid][order][:, 1:], np.float32)
+    counts = np.bincount(key, minlength=2 * num_bins * num_sub).reshape(-1, 2)
+    stop = np.cumsum(counts.sum(axis=1))
+    start = stop - counts.sum(axis=1)
+    spans = np.stack([start, start + counts[:, 0], stop], axis=1)
+    return EntryLayout(
+        spans=spans.astype(np.int32).reshape(num_bins, num_sub, 3),
+        entries=entries.reshape(-1, 2),
+    )
 
 
 def _asin_f32(s: torch.Tensor) -> torch.Tensor:

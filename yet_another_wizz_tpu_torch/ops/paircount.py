@@ -30,6 +30,7 @@ Execution paths of :func:`count_pairs_tiles`:
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import TYPE_CHECKING
 
@@ -252,6 +253,17 @@ def _count_pairs_oracle_backend(tiles1, tiles2, pairs, edges_radian):
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _device_table(
+    data: bytes, shape: tuple[int, ...], device: torch.device
+) -> torch.Tensor:
+    """A float32 threshold table on ``device``, uploaded once per content:
+    repeated counts with one configuration share the tensor, and with it
+    the kernels' entry layout derived from it. Callers do not modify it."""
+    table = np.frombuffer(data, np.float32).reshape(shape)
+    return torch.from_numpy(table.copy()).to(device)
+
+
 def count_pairs_tiles(
     tiles1: TileSet,
     tiles2: TileSet,
@@ -322,7 +334,8 @@ def count_pairs_tiles(
         raise ValueError(
             f"backend 'cuda' needs a CUDA device, got device '{device}'"
         )
-    table = torch.from_numpy(np.asarray(chord2_table, np.float32)).to(device)
+    table = np.ascontiguousarray(chord2_table, np.float32)
+    table = _device_table(table.tobytes(), table.shape, device)
     lanes1 = tiles1.device_data(device)
     lanes2 = tiles2.device_data(device)
     if backend == "torch":
