@@ -32,10 +32,13 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   ``crosscorrelate`` (K1.3 in two launches per count), its counts held
   against the union-edge cumulative counts.
 
-Beside the variants' checks it logs, for each direct variant, the share
-of candidate pairs whose separation weight the kernel computes and the
-bound that counts the weight for those pairs only, and it times kernel B
-on a list shaped like the wide grid's cross RD against ``index_add_``.
+Beside the variants' checks it logs, for each variant of kernel A, the
+share of candidate pairs in reach of an edge, the share of chunk blocks
+the cumulative kernel's skip rule keeps, and the bound of the work these
+inputs need beside the every-pair bound; it holds K1.1 (headline DD and
+RD) and K1.2 (w_ss DD) with unit weights on their full pair lists bit for
+bit against the plain version, and it times kernel B on a list shaped like
+the wide grid's cross RD against ``index_add_``.
 Every path resets the kernels' launch counts before it runs and checks
 after it that each variant of the path launched. The counts are checked
 against the float64 scipy oracle, and each path is timed warm. Every
@@ -247,6 +250,11 @@ def build_kernels() -> None:
         log(f"  ptxas: {line}")
     spilling = [line for line in summary if "spill 0/0 B" not in line]
     log(f"  ptxas: {len(summary)} kernel instances, {len(spilling)} spill")
+    check(not spilling, "kernel instances spill registers")
+    for line in summary:
+        registers = int(re.search(r": (\d+) registers", line).group(1))
+        check("direct=0" in line or registers <= 64,
+              f"a direct instance needs more than 64 registers: {line}")
     t0 = time.perf_counter()
     log(f"native host library: {'built' if _native.enabled() else 'MISSING'} "
         f"in {time.perf_counter() - t0:.2f} s")
@@ -342,20 +350,26 @@ def nbytes(*tensors) -> int:
 
 
 def reaching_pairs(lanes1, lanes2, tile1, tile2, table, direct, cols_binned):
-    """Candidate pairs whose weight the direct kernel needs, counted by the
-    plain engine with unit weights against tables of the rows' largest
-    thresholds: for each launch, the pairs within the largest threshold of
-    its edge group (and, with binned columns, of equal bins), and the
-    pairs within the largest threshold of any edge. Also the share of the
-    first launch's (warp, column) steps in which any of the warp's 32
-    consecutive rows reaches the column: a warp runs the weight code for
-    all its lanes in such a step. Returns ``(per_launch, group_sizes,
-    any_edge, warp_share)``."""
+    """What the inputs of a kernel-A variant need, counted by the plain
+    engine with unit weights (1 where a weight is nonzero: padding stays 0)
+    against tables of the rows' largest thresholds: for each launch, the
+    pairs within the largest threshold of its edge group (and, with binned
+    columns, of equal bins), and the pairs within the largest threshold of
+    any edge. Also the share of the first launch's (warp, column) steps in
+    which any of the warp's 32 consecutive rows reaches the column, and,
+    per launch, the share of (row chunk, column chunk) blocks that the
+    cumulative kernel's skip rule keeps (``chunk_keep_mask``, on the
+    card). Returns ``(per_launch, group_sizes, any_edge, warp_share,
+    kept_shares)``."""
     import torch
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
     from yet_another_wizz_tpu_torch.ops.gweight import counting_width
-    from yet_another_wizz_tpu_torch.ops.paircount import partial_counts_torch
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        chunk_keep_mask,
+        partial_counts_torch,
+    )
+    from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
 
     num_edges = counting_width(table.shape[1], direct)
     group = cuda_paircount.MAX_EDGES_PER_LAUNCH
@@ -365,9 +379,7 @@ def reaching_pairs(lanes1, lanes2, tile1, tile2, table, direct, cols_binned):
         table[:, e0:e0 + size].max(dim=1).values
         for e0, size in zip(starts, sizes)
     ] + [table[:, :num_edges].max(dim=1).values], dim=1)  # (B, launches + 1)
-    ones1, ones2 = lanes1.clone(), lanes2.clone()
-    ones1[:, 6] = 1.0
-    ones2[:, 6] = 1.0
+    ones1, ones2 = unit_weights(lanes1), unit_weights(lanes2)
     counts = partial_counts_torch(
         ones1, ones2, tile1.long(), tile2.long(), reach,
         cols_binned=cols_binned, chunk_size=PLAIN_CHUNK,
@@ -384,36 +396,54 @@ def reaching_pairs(lanes1, lanes2, tile1, tile2, table, direct, cols_binned):
             chord2 = chord2 + diff * diff
         bins = rows[:, 7].long().clamp(0, table.shape[0] - 1)
         reached = chord2 <= reach[bins, 0][:, :, None]
+        reached &= (rows[:, 6] != 0)[:, :, None] & (cols[:, 6] != 0)[:, None, :]
         if cols_binned:
             reached &= rows[:, 7, :, None] == cols[:, None, 7, :]
         num, size = reached.shape[:2]
         hits += reached.view(num, size // 32, 32, size).any(dim=2).sum().item()
         steps += num * (size // 32) * size
-    return counts[:-1], sizes, counts[-1], hits / steps
+    caps1, caps2 = chunk_caps(lanes1), chunk_caps(lanes2)
+    kept = [
+        chunk_keep_mask(
+            lanes1, caps1, caps2, tile1, tile2, table[:, e0:e0 + size],
+            cols_binned=cols_binned,
+        ).double().mean().item()
+        for e0, size in zip(starts, sizes)
+    ]
+    return counts[:-1], sizes, counts[-1], hits / steps, kept
 
 
-def reach_operations(candidates, per_launch, sizes, any_edge, direct,
-                     cols_binned) -> float:
-    """float32 operations these inputs need in direct mode: the chord (15)
-    and the compare against the row's reach (1) of every candidate pair,
-    the bin compare (1) with binned columns; 3 per counting edge of a
-    launch for each pair within that launch's reach; the separation
-    weight and its product with the column weight once for each pair
-    within reach of any edge. The entries a weighted pair walks are left
-    out (most sub-intervals have none), so it stays a lower bound."""
-    ops = candidates * (16 + int(cols_binned))
+def unit_weights(lanes):
+    """The lanes with weight 1 wherever it is nonzero (padding stays 0)."""
+    lanes = lanes.clone()
+    lanes[:, 6] = (lanes[:, 6] != 0).to(lanes.dtype)
+    return lanes
+
+
+def reach_operations(per_launch, sizes, any_edge, direct, cols_binned) -> float:
+    """float32 operations these inputs need, for every kernel-A variant:
+    the chord and the compare against the row's reach (16, +1 bin compare
+    when binned) for each pair in reach of its row's largest threshold (of
+    an equal bin, when binned); 3 per counting edge of a launch for each
+    pair in that launch's reach; in direct mode the separation weight and
+    its product with the column weight once for each pair in reach of any
+    edge. The entries a weighted pair walks are left out (most
+    sub-intervals have none), so it stays a lower bound."""
+    ops = any_edge * (16 + int(cols_binned))
     ops += sum(3 * size * pairs for size, pairs in zip(sizes, per_launch))
-    return ops + any_edge * (1 + weight_ops(direct))
+    if direct is not None:
+        ops += any_edge * (1 + weight_ops(direct))
+    return ops
 
 
 def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     """A kernel-A variant against its plain version on the inputs of one
     count of its path (the first ``limit`` entries of the pair list): two
     kernel runs bitwise equal, the error, the kernel's and the plain
-    version's milliseconds, and the bound. In direct mode also the share of
-    candidate pairs within reach of an edge, and the bound of the work
-    these inputs need (:func:`reach_operations`: the ``bound_ms`` of the
-    result) beside the every-pair bound."""
+    version's milliseconds, and the bound of the work these inputs need
+    (:func:`reach_operations`: the ``bound_ms`` of the result) beside the
+    every-pair bound, with the shares of candidate pairs in reach and of
+    chunk blocks the cumulative skip rule keeps."""
     import torch
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
@@ -451,24 +481,17 @@ def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     num_pairs = len(tile1)
     candidates = num_pairs * tiles1.tile_size ** 2
     num_bytes = nbytes(lanes1, lanes2, tile1, tile2, table, first)
-    bound_ms, bound_by = bound(
+    every_pair_ms, _ = bound(
         candidates * ops_per_pair(table.shape[1], direct), num_bytes
     )
-    reach = ""
-    if direct is not None:
-        per_launch, sizes, any_edge, warp_share = reaching_pairs(
-            lanes1, lanes2, tile1, tile2, table, direct, tiles2.binned
-        )
-        every_pair_ms = bound_ms
-        bound_ms, bound_by = bound(
-            reach_operations(candidates, per_launch, sizes, any_edge, direct,
-                             tiles2.binned),
-            num_bytes,
-        )
-        shares = " + ".join(f"{n / candidates:.4f}" for n in per_launch)
-        reach = (f", pairs in reach of an edge {any_edge / candidates:.4f} "
-                 f"(of each launch's edges {shares}; warp steps "
-                 f"{warp_share:.4f}), every-pair bound {every_pair_ms:.3f} ms")
+    per_launch, sizes, any_edge, warp_share, kept = reaching_pairs(
+        lanes1, lanes2, tile1, tile2, table, direct, tiles2.binned
+    )
+    bound_ms, bound_by = bound(
+        reach_operations(per_launch, sizes, any_edge, direct, tiles2.binned),
+        num_bytes,
+    )
+    shares = " + ".join(f"{n / candidates:.4f}" for n in per_launch)
     result = dict(
         name=name, count=count, tile_pairs=num_pairs, err=err,
         ms=cuda_ms(kernel, KERNEL_REPS), plain_ms=cuda_ms(plain, 1),
@@ -478,9 +501,49 @@ def variant_check(card, links, catalogs, count, *, limit: int | None) -> dict:
     log(f"[{card}] {name} [{count}, {num_pairs} of {pairs.num_pairs} tile pairs, "
         f"table {tuple(table.shape)}, direct {direct}]: kernel "
         f"{result['ms']:.3f} ms, plain {result['plain_ms']:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}){reach}, max abs err {err[0]:.3e}, "
-        f"max rel err {err[1]:.3e}, two kernel runs bitwise equal")
+        f"{bound_ms:.4f} ms ({bound_by}), every-pair bound {every_pair_ms:.3f} "
+        f"ms, pairs in reach of an edge {any_edge / candidates:.4f} (of each "
+        f"launch's edges {shares}; warp steps {warp_share:.4f}), chunk blocks "
+        f"kept {' + '.join(f'{x:.4f}' for x in kept)}, max abs err "
+        f"{err[0]:.3e}, max rel err {err[1]:.3e}, two kernel runs bitwise equal")
     return result
+
+
+def unit_weight_check(card, links, catalogs, count) -> None:
+    """K1.1 / K1.2 on the full pair list of one count with unit weights (1
+    where a weight is nonzero, padding stays 0; the wrapper derives the
+    chunk caps from those lanes): integer counts below 2^24 are exact in any order, so the kernel
+    must be ``torch.equal`` to the plain version, and a wrongly skipped
+    pair would show."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.ops.paircount import partial_counts_torch
+
+    tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+    table, _, direct, _ = links.engine_table()
+    check(direct is None, f"{count} does not count cumulatively")
+    device = torch.device("cuda")
+    lanes1 = unit_weights(tiles1.device_data(device))
+    lanes2 = unit_weights(tiles2.device_data(device))
+    table = torch.from_numpy(table).to(device)
+    tile1 = torch.from_numpy(pairs.tile1).to(device)
+    tile2 = torch.from_numpy(pairs.tile2).to(device)
+    kernel = cuda_paircount.paircount_partials(
+        lanes1, lanes2, tile1, tile2, table, cols_binned=tiles2.binned
+    )
+    plain = partial_counts_torch(
+        lanes1, lanes2, tile1.long(), tile2.long(), table,
+        cols_binned=tiles2.binned, chunk_size=PLAIN_CHUNK,
+    )
+    torch.cuda.synchronize()
+    name = cuda_paircount.variant_name(tiles2.binned, None)
+    check(torch.equal(kernel, plain),
+          f"{name} [{count}] with unit weights differs from the plain version "
+          f"(max abs {(kernel - plain).abs().max().item():.3e})")
+    log(f"[{card}] {name} [{count}, all {pairs.num_pairs} tile pairs, unit "
+        f"weights]: torch.equal to the plain version ({plain.sum().item():.6e} "
+        "pairs counted)")
 
 
 def segment_check(card, label, partial, pairs, *, double_reference=False):
@@ -556,6 +619,10 @@ def kernels_vs_plain(card, catalogs, configs) -> dict:
     results["paircount_partials"] = variant_check(
         card, links["headline"], catalogs, "cross DD", limit=None
     )
+    # K1.1 (headline DD, RD) and K1.2 (w_ss DD) on their full lists with
+    # unit weights: bit for bit the plain version
+    for count in ("cross DD", "cross RD", "auto DD"):
+        unit_weight_check(card, links["headline"], catalogs, count)
     tiles1, tiles2, pairs = engine_inputs(links["headline"], catalogs, "cross DD")
     device = torch.device("cuda")
     partial = cuda_paircount.paircount_partials(

@@ -11,13 +11,19 @@ Cumulative variants agree with the plain version to 1e-6, direct ones to
 1e-5: a 1-ulp difference in ``logf`` moves a pair within ~1e-7 of a
 sub-edge into the neighbouring sub-interval. Kernel B is held against
 the plain segment sum on long runs, empty slots, a single slot and rows
-wider than one block.
+wider than one block. The cumulative variants skip the column chunks that
+no row of a warp reaches; with unit weights (integer counts, exact in any
+order) they are ``torch.equal`` to the plain version, on hand-packed edge
+cases (``torch_chunk_cases.py``: a pair exactly on a threshold between
+tangent caps, padding chunks) and on catalog tiles, so a wrongly skipped
+pair shows.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from torch_chunk_cases import edge_case_inputs, unit_weights
 from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
 from yet_another_wizz_tpu_torch.ops.linkage import (
@@ -303,3 +309,84 @@ def test_entry_layout_too_large_for_shared_memory_is_refused(device):
             torch.from_numpy(pairs.tile2[k]).to(device), table,
             direct=edges.direct.spec,
         )
+
+
+def cumulative_pair(device, lanes1, lanes2, tile1, tile2, table, cols_binned):
+    """K1.1 / K1.2 on the card, twice, and the plain version."""
+    lanes1, lanes2 = lanes1.to(device), lanes2.to(device)
+    tile1, tile2, table = tile1.to(device), tile2.to(device), table.to(device)
+    runs = [
+        cuda_paircount.paircount_partials(
+            lanes1, lanes2, tile1, tile2, table, cols_binned=cols_binned
+        )
+        for _ in range(2)
+    ]
+    plain = partial_counts_torch(
+        lanes1, lanes2, tile1.long(), tile2.long(), table,
+        cols_binned=cols_binned,
+    )
+    torch.cuda.synchronize()
+    return runs, plain
+
+
+@pytest.mark.parametrize("weights", ["unit", "signed"])
+@pytest.mark.parametrize("cols_binned", [False, True], ids=["cross", "binned"])
+def test_chunk_skip_on_edge_cases(device, cols_binned, weights):
+    """A pair exactly on its row's largest threshold between tangent caps,
+    padding chunks on top of counted points, far chunks: with unit weights
+    bit for bit the plain version, with signed weights within 1e-6."""
+    lanes1, lanes2, tile1, tile2, table = edge_case_inputs(
+        17, signed=weights == "signed"
+    )
+    if weights == "unit":
+        lanes1, lanes2 = unit_weights(lanes1), unit_weights(lanes2)
+    (first, second), plain = cumulative_pair(
+        device, lanes1, lanes2, tile1, tile2, table, cols_binned
+    )
+    assert torch.equal(first, second)
+    assert plain.abs().max() > 0
+    if weights == "unit":
+        assert torch.equal(first, plain)
+    else:
+        assert (plain < 0).any()
+        assert_close(first, plain)
+
+
+@pytest.mark.parametrize("cols_binned", [False, True], ids=["cross", "binned"])
+def test_chunk_skip_on_catalog_tiles_with_unit_weights(device, cols_binned):
+    rng = np.random.default_rng(21)
+    tiles1, tiles2, pairs, table, _ = variant_inputs(
+        rng, "cumulative", cols_binned
+    )
+    lanes1 = unit_weights(torch.from_numpy(tiles1.lane_data))
+    lanes2 = unit_weights(torch.from_numpy(tiles2.lane_data))
+    (first, second), plain = cumulative_pair(
+        device, lanes1, lanes2, torch.from_numpy(pairs.tile1),
+        torch.from_numpy(pairs.tile2), torch.from_numpy(table), cols_binned,
+    )
+    assert torch.equal(first, second)
+    assert plain.max() > 0
+    assert torch.equal(first, plain)
+
+
+def test_chunk_skip_follows_lanes_changed_in_place(device):
+    """The wrapper derives the chunk caps from the lanes it is given: after
+    the lanes change in place (weights set where there were none, points
+    moved), the kernel counts what the plain version counts."""
+    lanes1, lanes2, tile1, tile2, table = (
+        t.to(device) for t in edge_case_inputs(18, signed=False)
+    )
+    lanes1, lanes2 = unit_weights(lanes1), unit_weights(lanes2)
+    for step in range(3):
+        if step == 1:  # a padding chunk of columns on top of counted rows
+            lanes2[0, 6, 3 * 32:] = 1.0
+        if step == 2:  # the far row chunk onto the counted columns
+            lanes1[0, :6, 3 * 32:] = lanes1[0, :6, 2 * 32:3 * 32]
+        kernel = cuda_paircount.paircount_partials(
+            lanes1, lanes2, tile1, tile2, table
+        )
+        plain = partial_counts_torch(
+            lanes1, lanes2, tile1.long(), tile2.long(), table
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(kernel, plain), step

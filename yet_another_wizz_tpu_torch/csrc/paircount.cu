@@ -23,8 +23,41 @@
 //      partial[k]. No float atomics: the result is the same on every run.
 //      - paircount_partials_kernel (cumulative, K1.1/K1.2): bound by float32
 //        issue, 15 operations for the chord, 1 for the column weight and 3
-//        per counting edge per pair; two rows per thread share each column
-//        load.
+//        per counting edge per evaluated pair, about 20 instructions, none
+//        of which can be an FMA. On the main path under 4 % of candidate
+//        pairs lie within their row's largest threshold. The TPU kernel
+//        evaluates the full (T, T) block, since its vector unit cannot
+//        branch per sub-block; a warp can, so this kernel evaluates only
+//        the column chunks a warp can reach. A warp owns 32 consecutive
+//        (Morton-ordered) rows, one chunk, per pass: one row per thread
+//        (two rows per thread and a per-column warp vote before the edge
+//        compares were measured slower, PERF.md). The wrapper derives the
+//        chunk caps of both tile sets from their lanes
+//        (ops/tiles.py::chunk_caps): per run of kChunk points a float32
+//        sphere (center, radius) around its points of nonzero weight, the
+//        radius rounded up and widened by CAP_SLACK, and their bin range.
+//        The block stages the column tile's caps in
+//        shared memory; the warp takes its row chunk's cap, the largest
+//        threshold of its rows of nonzero weight (a warp max) and its
+//        reach, sqrt(largest) + radius. A column chunk is skipped, as a
+//        warp, when |c_row - c_col| > reach + r_col, or with binned
+//        columns when the bin ranges are disjoint (chunk_reaches; its
+//        plain mirror is ops/paircount.py::chunk_keep_mask). The decision
+//        depends on warp-wide values only, so no lane diverges. Exact,
+//        bit for bit:
+//        (1) a skipped pair of nonzero weights lies beyond every threshold
+//            of its row: the caps cover both points, and CAP_SLACK dwarfs
+//            the float32 rounding of the chord and of the test, so the
+//            chord the kernel would compute exceeds the threshold, and the
+//            pair would add +0 (with binned columns, its bins differ: +0);
+//        (2) a pair with a zero-weight column adds +-0 wherever it lies;
+//            a zero-weight row's accumulators are multiplied by its weight
+//            0, so its pairs move nothing but the sign of a zero;
+//        (3) an accumulator starts at +0 and is never -0, so adding +-0 is
+//            the identity, and so is a +-0 row value in the (bin, edge)
+//            sum, which starts at +0;
+//        (4) the columns of a row are still added in ascending order, and
+//            the (B, E) row reduction and kernel B are unchanged.
 //      - paircount_direct_kernel (K1.3/K1.4): every pair that an edge
 //        counts needs its separation weight, log10(theta) -> sub-interval
 //        index -> weight, which costs more issue slots than the counting.
@@ -70,10 +103,12 @@
 // library is built with --fmad=false and without fast-math, so no FMA
 // contraction or approximate logf/expf/sqrtf changes its rounding, and
 // denormals are kept: it matches the plain PyTorch version operation for
-// operation, up to the order of float32 sums, and (a)-(c) leave every
-// pair's contribution bit for bit as the per-pair evaluation gives it.
+// operation, up to the order of float32 sums, and (1)-(4) and (a)-(c)
+// leave every pair's contribution bit for bit as the per-pair evaluation
+// gives it.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #ifndef YAWT_DIRECT
 #define YAWT_DIRECT 0
@@ -82,8 +117,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 2;
 constexpr int kWarp = 32;
+// points per chunk cap, one warp's rows (ops/tiles.py::CHUNK_SIZE, checked
+// through yawt_paircount_chunk when the library is loaded)
+constexpr int kChunk = kWarp;
+constexpr int kCapWidth = 8;  // floats per chunk cap (ops/tiles.py::CAP_WIDTH)
 constexpr int kDirectMinBlocks = 4;  // blocks per SM: at most 64 registers
 constexpr int kSegmentThreads = 256;
 // returned instead of a CUDA error when a launch needs more shared memory
@@ -201,65 +239,107 @@ __device__ __forceinline__ void reduce_rows(const float* row_val,
   }
 }
 
+// Whether a row chunk can reach a column chunk (warp-uniform): the caps'
+// centers lie within reach + r_col, reach = sqrt(largest threshold) +
+// r_row, or -inf for a chunk that counts nothing. The float32 operations
+// and their order are ops/paircount.py::chunk_keep_mask's.
+__device__ __forceinline__ bool chunk_reaches(float reach, float4 row_cap,
+                                              float4 col_cap) {
+  const float limit = __fadd_rn(reach, col_cap.w);
+  const float dx = __fsub_rn(row_cap.x, col_cap.x);
+  const float dy = __fsub_rn(row_cap.y, col_cap.y);
+  const float dz = __fsub_rn(row_cap.z, col_cap.z);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                             __fmul_rn(dz, dz));
+  return limit >= 0.0f && d2 <= __fmul_rn(limit, limit);
+}
+
 template <int NE, bool COLS_BINNED>
 __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
     const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
+    const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
+    const float* __restrict__ caps2,   // (N2, T / kChunk, kCapWidth)
     const int* __restrict__ tile1,     // (P,) row tile of each pair
     const int* __restrict__ tile2,     // (P,) column tile of each pair
     const float* __restrict__ table,   // (B, W): E thresholds
     int num_bins, int table_width, int num_edges, int edge0, int num_group,
     int tile_size,
     float* __restrict__ partial) {     // (P, B, E)
+  const int num_chunks = tile_size / kChunk;
   extern __shared__ float4 smem[];
   float4* col_a = smem;              // (T)
   float4* col_b = smem + tile_size;  // (T)
-  float* row_val = reinterpret_cast<float*>(smem + 2 * tile_size);  // (T, NE)
+  float4* cap_s = smem + 2 * tile_size;  // (T / kChunk, 2) column caps
+  float* row_val = reinterpret_cast<float*>(cap_s + 2 * num_chunks);  // (T, NE)
   int* row_bin = reinterpret_cast<int*>(row_val + tile_size * NE);  // (T)
   float* thr_s = reinterpret_cast<float*>(row_bin + tile_size);     // (B, NE)
 
   const long long k = blockIdx.x;
   const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
   const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
+  const float4* row_caps = reinterpret_cast<const float4*>(
+      caps1 + static_cast<long long>(tile1[k]) * num_chunks * kCapWidth);
+  const float4* col_caps = reinterpret_cast<const float4*>(
+      caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
   stage_columns(cols, tile_size, col_a, col_b);
   stage_thresholds<NE>(table, num_bins, table_width, edge0, num_group, thr_s);
+  for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
+    cap_s[i] = col_caps[i];
+  }
   __syncthreads();
 
-  for (int base = 0; base < tile_size; base += kRowsPerThread * blockDim.x) {
-    float xh[kRowsPerThread], yh[kRowsPerThread], zh[kRowsPerThread];
-    float xl[kRowsPerThread], yl[kRowsPerThread], zl[kRowsPerThread];
-    float zr[kRowsPerThread];
-    float thr[kRowsPerThread][NE];
-    float acc[kRowsPerThread][NE];
+  for (int base = 0; base < tile_size; base += blockDim.x) {
+    // one row per thread: the warp's rows are one chunk, all of them
+    // valid or none (T is a multiple of kChunk)
+    const int row = base + threadIdx.x;
+    const bool valid = row < tile_size;
+    const int at = valid ? row : 0;
+    const float xh = rows[at];
+    const float yh = rows[tile_size + at];
+    const float zh = rows[2 * tile_size + at];
+    const float xl = rows[3 * tile_size + at];
+    const float yl = rows[4 * tile_size + at];
+    const float zl = rows[5 * tile_size + at];
+    const float w_row = rows[6 * tile_size + at];
+    const float zr = rows[7 * tile_size + at];
+    const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
+    float thr[NE];
+    float acc[NE];
+    float largest = -1.0f;  // the row's largest threshold
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int row = base + r * blockDim.x + threadIdx.x;
-      const bool valid = row < tile_size;
-      const int at = valid ? row : 0;
-      xh[r] = rows[at];
-      yh[r] = rows[tile_size + at];
-      zh[r] = rows[2 * tile_size + at];
-      xl[r] = rows[3 * tile_size + at];
-      yl[r] = rows[4 * tile_size + at];
-      zl[r] = rows[5 * tile_size + at];
-      zr[r] = rows[7 * tile_size + at];
-      const int bin = min(max(static_cast<int>(zr[r]), 0), num_bins - 1);
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        thr[r][e] = valid ? thr_s[bin * NE + e] : -1.0f;
-        acc[r][e] = 0.0f;
-      }
+    for (int e = 0; e < NE; ++e) {
+      thr[e] = valid ? thr_s[bin * NE + e] : -1.0f;
+      acc[e] = 0.0f;
+      largest = fmaxf(largest, thr[e]);
     }
-
-    for (int j = 0; j < tile_size; ++j) {
-      const float4 a = col_a[j];
-      const float4 c = col_b[j];
+    // the chunk reaches as far as its rows of nonzero weight ((2))
+    largest = w_row != 0.0f ? largest : -1.0f;
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
+    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+      largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
+    }
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 row_cap = valid ? row_caps[2 * (row / kChunk)] : none;
+    const float4 row_bins = valid ? row_caps[2 * (row / kChunk) + 1] : none;
+    // -inf for a chunk that counts nothing
+    const float reach = largest < 0.0f ? -CUDART_INF_F
+                                       : __fadd_rn(sqrtf(largest), row_cap.w);
+
+    for (int chunk = 0; chunk < num_chunks; ++chunk) {
+      bool keep = chunk_reaches(reach, row_cap, cap_s[2 * chunk]);
+      if constexpr (COLS_BINNED) {
+        const float4 col_bins = cap_s[2 * chunk + 1];
+        keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
+      }
+      if (!keep) continue;  // (1)-(3): every pair of the chunk adds +-0
+      for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
+        const float4 a = col_a[j];
+        const float4 c = col_b[j];
         // compensated difference: (hi1 - hi2) + (lo1 - lo2)
-        const float dx = __fadd_rn(__fsub_rn(xh[r], a.x), __fsub_rn(xl[r], c.x));
-        const float dy = __fadd_rn(__fsub_rn(yh[r], a.y), __fsub_rn(yl[r], c.y));
-        const float dz = __fadd_rn(__fsub_rn(zh[r], a.z), __fsub_rn(zl[r], c.z));
+        const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
+        const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
+        const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
         float chord2 = __fmul_rn(dx, dx);
         chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
         chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
@@ -267,25 +347,20 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
         float w = a.w;
         if constexpr (COLS_BINNED) {
           // exact compare of the float bin lanes
-          w = c.w == zr[r] ? w : 0.0f;
+          w = c.w == zr ? w : 0.0f;
         }
 #pragma unroll
         for (int e = 0; e < NE; ++e) {
-          acc[r][e] = __fadd_rn(acc[r][e], chord2 <= thr[r][e] ? w : 0.0f);
+          acc[e] = __fadd_rn(acc[e], chord2 <= thr[e] ? w : 0.0f);
         }
       }
     }
 
+    if (valid) {
+      row_bin[row] = bin;
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int row = base + r * blockDim.x + threadIdx.x;
-      if (row < tile_size) {
-        const float w_row = rows[6 * tile_size + row];
-        row_bin[row] = min(max(static_cast<int>(zr[r]), 0), num_bins - 1);
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          row_val[row * NE + e] = __fmul_rn(w_row, acc[r][e]);
-        }
+      for (int e = 0; e < NE; ++e) {
+        row_val[row * NE + e] = __fmul_rn(w_row, acc[e]);
       }
     }
   }
@@ -488,6 +563,8 @@ paircount_direct_kernel(
 struct Launch {
   const float* lanes1;
   const float* lanes2;
+  const float* caps1;
+  const float* caps2;
   const int* tile1;
   const int* tile2;
   long long num_pairs;
@@ -525,13 +602,14 @@ int launch_partials(const Launch& a) {
   const unsigned int blocks = static_cast<unsigned int>(a.num_pairs);
   int status;
   if constexpr (YAWT_DIRECT == kCumulative) {
+    smem += 2 * (tile / kChunk) * sizeof(float4);
     auto kernel = paircount_partials_kernel<NE, COLS_BINNED>;
     status = prepare(kernel, smem);
     if (status != 0) return status;
     kernel<<<blocks, kThreads, smem, a.stream>>>(
-        a.lanes1, a.lanes2, a.tile1, a.tile2, a.table, a.num_bins,
-        a.table_width, a.num_edges, a.edge0, a.num_group, a.tile_size,
-        a.partial);
+        a.lanes1, a.lanes2, a.caps1, a.caps2, a.tile1, a.tile2, a.table,
+        a.num_bins, a.table_width, a.num_edges, a.edge0, a.num_group,
+        a.tile_size, a.partial);
   } else {
     smem += bins * a.num_sub * sizeof(int4) +
             static_cast<size_t>(a.num_entries) * sizeof(float2) +
@@ -620,11 +698,17 @@ extern "C" {
 // small-angle, 2 direct arcsine.
 int yawt_paircount_mode() { return YAWT_DIRECT; }
 
+// Points per chunk cap that yawt_paircount_partials reads (caps1 / caps2).
+int yawt_paircount_chunk() { return kChunk; }
+
 // One launch of kernel A for the counting edges [edge0, edge0 + num_group)
 // of a (num_bins, table_width) table whose first num_edges columns are
 // squared-chord thresholds and, in direct mode, whose remaining columns
 // are the weight parameters [inv_d, lo_scaled, gc0, gc1, entries...]
-// (num_sub uniform sub-intervals). In direct mode, layout holds the
+// (num_sub uniform sub-intervals). The cumulative build reads the tiles'
+// chunk caps caps1 / caps2, (N, T / 32, 8) float32 each
+// (ops/tiles.py::chunk_caps; T a multiple of 32); the direct builds ignore
+// them. In direct mode, layout holds the
 // int32 (num_bins, num_sub, 3) entry spans followed by the num_entries
 // (thr, g) float32 entries (ops/gweight.py::EntryLayout.packed); the
 // cumulative build ignores num_sub, layout and num_entries.
@@ -633,13 +717,14 @@ int yawt_paircount_mode() { return YAWT_DIRECT; }
 // needs more shared memory than one block may have (a tile, table or
 // entry layout too large).
 int yawt_paircount_partials(const float* lanes1, const float* lanes2,
+                            const float* caps1, const float* caps2,
                             const int* tile1, const int* tile2,
                             long long num_pairs, const float* table,
                             int num_bins, int table_width, int num_edges,
                             int edge0, int num_group, int tile_size,
                             int cols_binned, int num_sub, const int* layout,
                             int num_entries, float* partial, void* stream) {
-  const Launch a{lanes1, lanes2, tile1, tile2, num_pairs, table,
+  const Launch a{lanes1, lanes2, caps1, caps2, tile1, tile2, num_pairs, table,
                  num_bins, table_width, num_edges, edge0, num_group,
                  tile_size, num_sub, layout, num_entries, partial,
                  static_cast<cudaStream_t>(stream)};

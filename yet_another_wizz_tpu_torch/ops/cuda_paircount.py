@@ -13,9 +13,17 @@ _paircount_kernel`` in all of its variants (ROADMAP K1.1-K1.5):
 Together they are deterministic: no float atomics, a summation order fixed
 by the shapes alone. Kernel A is bound by float32 issue: the compensated
 chord, a compare and an add per counting edge, and in direct mode the
-separation weight of each pair that an edge counts. Its direct instances
-take the base weight of a pair's (bin, sub-interval) from a table the
-block fills in shared memory with the same ``expf``, walk only the
+separation weight of each pair that an edge counts. Its cumulative
+instances evaluate only the column chunks that a warp's rows can reach:
+each warp (32 consecutive rows) tests its chunk cap against every column
+chunk's (:func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`, derived
+from the lanes by :func:`_device_caps`) and skips the chunks beyond its
+rows' largest threshold or, with binned columns, in other bins; a skipped
+pair would have added +0, so the result is bit for bit the per-pair
+evaluation's
+(:func:`~yet_another_wizz_tpu_torch.ops.paircount.chunk_keep_mask` is the
+rule's plain mirror). Its direct instances take the base weight of a
+pair's (bin, sub-interval) from a table the block fills in shared memory with the same ``expf``, walk only the
 below/above entries of the pair's own sub-interval (grouped from the table
 itself by :func:`~yet_another_wizz_tpu_torch.ops.gweight.entry_layout`,
 once per table, held in shared memory, any number of them), and skip the weight of a pair beyond
@@ -61,6 +69,7 @@ from yet_another_wizz_tpu_torch.ops.paircount import (
     partial_counts_torch,
     segment_sum_torch,
 )
+from yet_another_wizz_tpu_torch.ops.tiles import CHUNK_SIZE, chunk_caps
 from yet_another_wizz_tpu_torch.utils.misc import (
     build_directory,
     build_shared_library,
@@ -149,8 +158,11 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
     lib.yawt_paircount_mode.restype = i32
     if lib.yawt_paircount_mode() != mode:
         raise RuntimeError(f"{path} was not built for counting mode {mode}")
+    lib.yawt_paircount_chunk.restype = i32
+    if lib.yawt_paircount_chunk() != CHUNK_SIZE:
+        raise RuntimeError(f"{path} does not read chunks of {CHUNK_SIZE} points")
     lib.yawt_paircount_partials.argtypes = [
-        ptr, ptr, ptr, ptr, i64, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr,
         i32, i32, i32, i32, i32, i32, i32, i32, ptr, i32, ptr, ptr,
     ]
     lib.yawt_paircount_partials.restype = i32
@@ -248,6 +260,27 @@ def _device_layout(
     return buffer
 
 
+_caps: dict[int, tuple[int, torch.Tensor]] = {}
+"""Chunk caps by ``id`` of the lanes they were derived from, with the
+lanes' version counter."""
+
+
+def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
+    """The :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps` of
+    ``lanes`` on their device: the only source of the caps the cumulative
+    kernel reads. Derived on the lanes' first use and cached until they are
+    freed or changed in place."""
+    key = id(lanes)
+    cached = _caps.get(key)
+    if cached is not None and cached[0] == lanes._version:
+        return cached[1]
+    if cached is None:
+        weakref.finalize(lanes, _caps.pop, key, None)
+    caps = chunk_caps(lanes)
+    _caps[key] = (lanes._version, caps)
+    return caps
+
+
 def paircount_partials(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
@@ -259,9 +292,11 @@ def paircount_partials(
     direct: tuple | None = None,
 ) -> torch.Tensor:
     """``(P, B, E)`` float32 block of every tile pair ``(tile1[k],
-    tile2[k])`` (kernel A). ``lanes*`` are ``(N, 8, T)`` float32 tiles,
-    ``tile*`` int32 indices, ``chord2_table`` the ``(B, E)`` float32
-    thresholds or, with ``direct = (num_sub, num_below, num_above,
+    tile2[k])`` (kernel A). ``lanes*`` are ``(N, 8, T)`` float32 tiles
+    (``T`` a multiple of 32 for the cumulative kernel on the card, which
+    skips the column chunks no row of a warp reaches by the lanes' chunk
+    caps, :func:`_device_caps`), ``tile*`` int32 indices,
+    ``chord2_table`` the ``(B, E)`` float32 thresholds or, with ``direct = (num_sub, num_below, num_above,
     small_angle)``, the ``(B, E + C)`` combined table of
     :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`.
     ``cols_binned`` counts a column only where its bin equals the row's.
@@ -291,8 +326,12 @@ def paircount_partials(
         raise ValueError("'tile1' and 'tile2' differ in length")
     num_pairs = len(tile1)
     num_bins, table_width = chord2_table.shape
-    num_sub, num_entries, layout_ptr = 0, 0, None
-    if direct is not None:
+    caps_ptrs, num_sub, num_entries, layout_ptr = (None, None), 0, 0, None
+    if direct is None:
+        caps_ptrs = (
+            _device_caps(lanes1).data_ptr(), _device_caps(lanes2).data_ptr()
+        )
+    else:
         num_sub = direct[0]
         layout = _device_layout(chord2_table, num_edges, direct)
         num_entries = (len(layout) - 3 * num_bins * num_sub) // 2
@@ -311,7 +350,7 @@ def paircount_partials(
         for edge0 in range(0, num_edges, MAX_EDGES_PER_LAUNCH):
             num_group = min(MAX_EDGES_PER_LAUNCH, num_edges - edge0)
             status = lib.yawt_paircount_partials(
-                lanes1.data_ptr(), lanes2.data_ptr(),
+                lanes1.data_ptr(), lanes2.data_ptr(), *caps_ptrs,
                 tile1.data_ptr(), tile2.data_ptr(), num_pairs,
                 chord2_table.data_ptr(), num_bins, table_width, num_edges,
                 edge0, num_group, tile_size, int(cols_binned), num_sub,

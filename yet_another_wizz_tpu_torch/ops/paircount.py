@@ -41,6 +41,11 @@ from yet_another_wizz_tpu_torch.ops.gweight import (
     apply_direct_weight,
     counting_width,
 )
+from yet_another_wizz_tpu_torch.ops.tiles import (
+    CHANNEL_WEIGHT,
+    CHANNEL_ZBIN,
+    CHUNK_SIZE,
+)
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -51,6 +56,7 @@ if TYPE_CHECKING:
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "chunk_keep_mask",
     "count_pairs_tiles",
     "count_pairs_torch",
     "pair_block_counts",
@@ -190,6 +196,51 @@ def partial_counts_torch(
             cols_binned=cols_binned, direct=direct,
         )
     return partial
+
+
+def chunk_keep_mask(
+    lanes1: torch.Tensor,
+    caps1: torch.Tensor,
+    caps2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+) -> torch.Tensor:
+    """``(P, K, K)`` bool, ``K = T / 32``: the (row chunk, column chunk)
+    blocks of each tile pair that the cumulative CUDA kernel evaluates, in
+    the kernel's float32 operations and order (``csrc/paircount.cu``,
+    ``chunk_reaches``). ``lanes1`` are the row tiles, ``caps*`` the
+    tile sets' :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`,
+    ``chord2_table`` one launch's edges. A row chunk reaches as far
+    as the largest threshold of its rows of nonzero weight; a block is
+    dropped when the caps lie farther apart than the radii plus that
+    chord or, with binned columns, when their bin ranges are disjoint. The
+    plain engine (:func:`pair_block_counts`) evaluates every pair; this
+    mirror serves the tests and the chip smoke run's kept share."""
+    tile1, tile2 = tile1.long(), tile2.long()
+    num_tiles, _, tile_size = lanes1.shape
+    bins = lanes1[:, CHANNEL_ZBIN].long().clamp(0, chord2_table.shape[0] - 1)
+    largest = chord2_table.amax(dim=1)[bins]  # (N1, T)
+    largest = torch.where(lanes1[:, CHANNEL_WEIGHT] != 0, largest, -1.0)
+    largest = largest.view(num_tiles, tile_size // CHUNK_SIZE, CHUNK_SIZE)
+    largest = largest.amax(dim=2)  # (N1, K)
+    reach = torch.where(
+        largest < 0, float("-inf"), largest.clamp(min=0).sqrt() + caps1[..., 3]
+    )
+    row_caps = caps1[tile1][:, :, None, :]  # (P, K, 1, 8)
+    col_caps = caps2[tile2][:, None, :, :]  # (P, 1, K, 8)
+    limit = reach[tile1][:, :, None] + col_caps[..., 3]
+    d = row_caps[..., :3] - col_caps[..., :3]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    keep = (limit >= 0) & (d2 <= limit * limit)
+    if cols_binned:
+        disjoint = (row_caps[..., 5] < col_caps[..., 4]) | (
+            col_caps[..., 5] < row_caps[..., 4]
+        )
+        keep &= ~disjoint
+    return keep
 
 
 def segment_sum_torch(

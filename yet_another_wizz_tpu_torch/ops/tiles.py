@@ -19,7 +19,10 @@ arithmetic instead, so a catalog becomes a :class:`TileSet`:
 
 Weights of padding points are zero, so they never contribute to counts.
 Lanes cross to the device as these float32 arrays, 32 B per point; the JAX
-package's fixed-point link encoding is not ported.
+package's fixed-point link encoding is not ported. From the lanes,
+:func:`chunk_caps` derives a bounding sphere and bin range per run of 32
+consecutive points, from which the cumulative CUDA kernel skips the column
+chunks that none of a warp's rows can reach.
 The packing hot path (Morton codes, the scatter into the packed layout,
 tile caps) uses the native C++ kernels from
 :mod:`yet_another_wizz_tpu_torch._native` when available, with numpy fallbacks.
@@ -43,6 +46,7 @@ if TYPE_CHECKING:
 __all__ = [
     "TileSet",
     "build_tile_set",
+    "chunk_caps",
     "morton_codes",
     "preferred_tile_layout",
 ]
@@ -54,6 +58,74 @@ CHANNEL_ZBIN = 7
 NUM_CHANNELS = 8
 
 DEFAULT_TILE_SIZE = 512
+
+CHUNK_SIZE = 32
+"""Points per chunk cap (``kChunk`` in ``csrc/paircount.cu`` must match):
+one warp's rows, and the run of columns a warp skips as a whole."""
+
+CAP_SLACK = 1e-5
+"""Absolute slack added to every chunk cap's radius (unit-sphere chord
+units). The cap test is a PRUNE: a skipped pair must lie beyond the float32
+squared chord the kernel would compute for it. That compensated chord is
+within a few float32 ulps of the exact chord of the lanes (relative ~3e-7,
+under 1e-6 absolute for chords up to 2), and the kernel's float32 cap test
+rounds about as much; 1e-5 on each radius dwarfs both, and admits only
+chunk pairs within ~2e-5 rad (4 arcsec) of the exact boundary."""
+
+CAP_WIDTH = 8
+"""float32 values per chunk cap: center x, y, z, radius, lowest and
+highest bin, two zeros (two 16-byte loads)."""
+
+
+def chunk_caps(lanes: torch.Tensor, chunk_size: int = CHUNK_SIZE) -> torch.Tensor:
+    """Bounding spheres and bin ranges of the chunks of ``chunk_size``
+    consecutive points of each tile, ``(N, T / chunk_size, 8)`` float32 on
+    the device of the ``(N, 8, T)`` lanes.
+
+    Only points of nonzero weight are covered: a zero-weight point adds
+    +-0 wherever it lies (padding has weight 0). Positions are the lanes'
+    ``hi + lo`` in float64 (exact), so a tile set converted from the JAX
+    package gets the same caps. The center is the chunk's mean rounded to
+    float32; the radius is the float64 distance to the farthest covered
+    point plus :data:`CAP_SLACK`, rounded up to float32. A chunk without
+    such points has radius ``-inf`` and the empty bin range ``(+inf,
+    -inf)``: no pair of it is ever evaluated."""
+    num_tiles, channels, tile_size = lanes.shape
+    if channels != NUM_CHANNELS or tile_size % chunk_size:
+        raise ValueError(
+            f"lanes of shape {tuple(lanes.shape)} do not split into chunks "
+            f"of {chunk_size} points"
+        )
+    num_chunks = tile_size // chunk_size
+    data = lanes.double().view(num_tiles, NUM_CHANNELS, num_chunks, chunk_size)
+    xyz = data[:, CHANNEL_XYZ_HI] + data[:, CHANNEL_XYZ_LO]  # (N, 3, K, C)
+    covered = data[:, CHANNEL_WEIGHT] != 0  # (N, K, C)
+    num_covered = covered.sum(dim=-1)
+    zero = torch.zeros((), dtype=xyz.dtype, device=xyz.device)
+    mean = torch.where(covered[:, None], xyz, zero).sum(dim=-1) / num_covered.clamp(
+        min=1
+    )[:, None]
+    center = mean.float()  # (N, 3, K)
+    distance = (
+        (xyz - center.double()[..., None]) ** 2
+    ).sum(dim=1).sqrt()  # (N, K, C)
+    radius = torch.where(covered, distance, zero).amax(dim=-1) + CAP_SLACK
+    radius32 = radius.float()
+    inf = torch.tensor(float("inf"), device=xyz.device)
+    radius32 = torch.where(
+        radius32.double() < radius, torch.nextafter(radius32, inf), radius32
+    )
+    empty = num_covered == 0
+    bins = data[:, CHANNEL_ZBIN]
+    caps = torch.zeros(
+        (num_tiles, num_chunks, CAP_WIDTH), dtype=torch.float32,
+        device=lanes.device,
+    )
+    caps[..., 0:3] = center.transpose(1, 2)
+    caps[..., 3] = torch.where(empty, -inf, radius32)
+    caps[..., 4] = torch.where(covered, bins, inf.double()).amin(dim=-1).float()
+    caps[..., 5] = torch.where(covered, bins, -inf.double()).amax(dim=-1).float()
+    return caps
 
 
 def preferred_tile_layout(
