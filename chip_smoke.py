@@ -30,7 +30,20 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
 - many scales: ten overlapping scales between 100 and 2,000 kpc with
   ``rweight=-1`` at resolution 32, 18 above-entries per bin:
   ``crosscorrelate`` (K1.3 in two launches per count), its counts held
-  against the union-edge cumulative counts.
+  against the union-edge cumulative counts;
+- survey: the JAX package's survey-scale bench (``bench.py:465-602``,
+  BASELINE config 5 on one card): 1M reference + 2M unknown from
+  ``generate_mock_data(seed=777)`` and 4M ``HealPixRandoms`` (nside 128,
+  ra 40-60 deg, dec -10-10 deg, seed 199), 96 kmeans patches, disk caches
+  in a temporary directory; ``crosscorrelate(max_resident_patches=24)``
+  (the blocked out-of-core path, K1.1 once per block pair) on the caches
+  opened as ``Catalog``, then, in child processes that report their peak
+  host memory, as ``Catalog`` and as ``LazyCatalog`` with the packed-tile
+  store warm. Its counts are held against the in-memory path and the
+  float64 oracle on 48 slots, the lazy and store-hit runs bitwise against
+  the first; it logs the phases of each run, the engine's kernel time, the
+  side-stream upload time of a run without the tile store, and the cache
+  hits.
 
 Beside the variants' checks it logs, for each variant of kernel A, the
 share of candidate pairs in reach of an edge, the share of chunk blocks
@@ -45,6 +58,8 @@ against the float64 scipy oracle, and each path is timed warm. Every
 phase raises on failure, so the exit code is non-zero; the last line of
 standard output is the JSON result ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero before printing a result.
+``python3 chip_smoke.py --survey-child KIND ROOT OUT`` is the survey path's
+child process (``KIND`` ``catalog`` or ``lazy``); it is not run by hand.
 """
 
 from __future__ import annotations
@@ -122,6 +137,21 @@ F32_RATE = 67e12
 data sheet, at the 700 W power limit)."""
 HBM_RATE = 3.35e12
 """Device memory bytes/s of one H100 SXM."""
+SURVEY_SIZES = dict(num_reference=1_000_000, num_unknown=2_000_000)
+SURVEY_RANDOMS = 4_000_000
+SURVEY_PATCHES = 96
+SURVEY_RESIDENT = 24
+SURVEY_SEED = 777
+SURVEY_RANDOM_SEED = 199
+SURVEY_NSIDE = 128
+SURVEY_NAMES = ("reference", "unknown", "randoms")
+SURVEY_ORACLE_SLOTS = 48
+SURVEY_WARM_RUNS = 3
+SURVEY_PHASES = (
+    "rows", "cols", "pairs", "queue", "drain_wait", "drain_fetch",
+    "drain_scatter", "upload", "upload_bytes", "store_hits", "store_misses",
+    "num_block_pairs",
+)
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
 
@@ -883,14 +913,14 @@ def run_path(name: str, fn, expected: dict, launches_total: dict):
     return result, launches
 
 
-def check_nz(nz, label: str) -> None:
+def check_nz(nz, label: str, num_patches: int = NUM_PATCHES) -> None:
     import numpy as np
 
     for field in ("data", "error", "covariance"):
         check(bool(np.all(np.isfinite(getattr(nz, field)))),
               f"{label} n(z) {field} is not finite")
     check(nz.data.shape == (NUM_BINS,), f"{label} n(z) has the wrong shape")
-    check(nz.samples.shape == (NUM_PATCHES, NUM_BINS), f"{label} wrong sample shape")
+    check(nz.samples.shape == (num_patches, NUM_BINS), f"{label} wrong sample shape")
 
 
 def warm_time(fn, runs: int = WARM_RUNS) -> tuple[float, float, float]:
@@ -930,6 +960,356 @@ def engine_times(card, label, links, catalogs, counts) -> float:
             f"{candidates:.4e} candidate pairs): kernels {ms:.3f} ms "
             f"({candidates / (ms * 1e-3):.4e} pairs/s)")
     return total
+
+
+# -- survey path (blocked, out of core) ----------------------------------------
+
+
+MEMORY_KINDS = ("VmRSS", "RssAnon", "RssFile", "RssShmem")
+"""The resident-memory lines of ``/proc/self/status`` read (``VmRSS``: all
+of it; where the kernel reports them, ``RssAnon``: heap and pinned buffers,
+``RssFile``: mapped files such as the CUDA libraries' kernels,
+``RssShmem``)."""
+
+
+def host_memory() -> dict:
+    """This process's resident memory now, in bytes, by the kinds of
+    :data:`MEMORY_KINDS` its ``/proc/self/status`` reports; ``VmRSS`` from
+    ``/proc/self/statm`` when the status has no such line."""
+    sizes = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in MEMORY_KINDS:
+                sizes[key] = int(value.split()[0]) * 1024
+    if "VmRSS" not in sizes:
+        with open("/proc/self/statm") as f:
+            sizes["VmRSS"] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return sizes
+
+
+class MemorySampler:
+    """The largest :func:`host_memory` of each kind seen by a thread that
+    samples it every 20 ms while the ``with`` block runs."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.peak = host_memory()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.02):
+            for key, value in host_memory().items():
+                self.peak[key] = max(self.peak.get(key, 0), value)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        for key, value in host_memory().items():
+            self.peak[key] = max(self.peak.get(key, 0), value)
+
+
+def write_survey_caches(root: str) -> None:
+    """The survey's three catalog caches under ``root``: mocks, 96 kmeans
+    patches on the reference, HEALPix-mask randoms drawing the reference's
+    redshifts (``bench.py:499-530``)."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+    from yet_another_wizz_tpu_torch.randoms import HealPixRandoms
+    from yet_another_wizz_tpu_torch.utils.healpix import pix2ang_ring
+
+    mock = generate_mock_data(**SURVEY_SIZES, num_randoms=1, seed=SURVEY_SEED)
+    reference = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=SURVEY_PATCHES,
+        cache_directory=os.path.join(root, "reference"), device="cuda",
+    )
+    centers = reference.get_centers()
+    Catalog.from_arrays(
+        **mock["unknown"], degrees=False, patch_centers=centers,
+        cache_directory=os.path.join(root, "unknown"), device="cuda",
+    )
+    colat, lon = pix2ang_ring(SURVEY_NSIDE, np.arange(12 * SURVEY_NSIDE**2))
+    ra, dec = np.rad2deg(lon), 90.0 - np.rad2deg(colat)
+    mask = ((ra >= 40) & (ra <= 60) & (dec >= -10) & (dec <= 10)).astype(float)
+    generator = HealPixRandoms(
+        mask, redshifts=mock["reference"]["redshifts"], seed=SURVEY_RANDOM_SEED
+    )
+    Catalog.from_random(
+        os.path.join(root, "randoms"), generator, SURVEY_RANDOMS,
+        patch_centers=centers, device="cuda",
+    )
+
+
+def survey_run(config, catalogs):
+    """One survey measurement (blocked ``crosscorrelate`` DD + RD and the
+    jackknife n(z)) in a tile cache of its own: ``(w_sp, n(z), stats)``,
+    with the run's phase totals and cache hits in ``stats``."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.correlation import blocked
+    from yet_another_wizz_tpu_torch.correlation.measurements import crosscorrelate
+    from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+
+    blocked.reset_phase_totals()
+    with blocked.measurement_tile_cache() as cache:
+        (wsp,) = crosscorrelate(
+            config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
+            max_resident_patches=SURVEY_RESIDENT, device="cuda",
+        )
+        nz = RedshiftData.from_corrfuncs(wsp)
+    torch.cuda.synchronize()
+    stats = {key: blocked.PHASE_TOTALS.get(key, 0) for key in SURVEY_PHASES}
+    stats["candidate_pairs"] = blocked.PHASE_TOTALS["candidate_pairs"]
+    stats["cache_hits"], stats["cache_misses"] = cache.hits, cache.misses
+    return wsp, nz, stats
+
+
+def format_stats(stats: dict) -> str:
+    return ", ".join(
+        f"{key} {value:.3f} s" if isinstance(value, float) else f"{key} {value}"
+        for key, value in stats.items()
+    )
+
+
+def same_counts(corr, other) -> bool:
+    import numpy as np
+
+    return all(
+        np.array_equal(getattr(corr, name).counts.counts, getattr(other, name).counts.counts)
+        for name in ("dd", "rd")
+    )
+
+
+def survey_child(kind: str, root: str, out: str) -> None:
+    """The survey path's child process: open the caches as ``Catalog`` or
+    ``LazyCatalog``, run the measurement once, save its DD and RD counts to
+    ``out`` and print, as one JSON line, its host memory by kind before
+    opening, after opening and at the peak of the run (sampled), with the
+    process's peak resident set. A blocked measurement on small in-memory
+    mocks runs first, so that the memory the CUDA libraries take on first
+    use is in the baseline."""
+    import gc
+    import resource
+
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog, LazyCatalog
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+
+    config = Configuration.create(**CONFIG)
+    mock = generate_mock_data(20_000, 40_000, 80_000, seed=SURVEY_SEED)
+    warm_up = [Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=SURVEY_PATCHES, device="cuda"
+    )]
+    warm_up += [
+        Catalog.from_arrays(**mock[name], degrees=False,
+                            patch_centers=warm_up[0].get_centers(), device="cuda")
+        for name in ("unknown", "randoms")
+    ]
+    survey_run(config, warm_up)
+    del mock, warm_up
+    gc.collect()
+    base = host_memory()
+    with MemorySampler() as sampler:
+        t0 = time.perf_counter()
+        catalog_cls = LazyCatalog if kind == "lazy" else Catalog
+        catalogs = [catalog_cls(os.path.join(root, name)) for name in SURVEY_NAMES]
+        t_open = time.perf_counter() - t0
+        opened = host_memory()
+        wsp, _, stats = survey_run(config, catalogs)
+        seconds = time.perf_counter() - t0
+    np.savez(out, dd=wsp.dd.counts.counts, rd=wsp.rd.counts.counts)
+    print(json.dumps(dict(
+        kind=kind, rows=sum(sum(c.get_num_records()) for c in catalogs),
+        base=base, opened=opened, peak=sampler.peak,
+        max_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        open_s=t_open, total_s=seconds, stats=stats,
+    )))
+
+
+def survey_path(card, config, launches_total) -> None:
+    """The survey path on caches in a temporary directory, removed at the
+    end (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="yawt_survey_")
+    try:
+        survey_checks(card, config, launches_total, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def survey_checks(card, config, launches_total, root) -> None:
+    import numpy as np
+    import torch
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.correlation import blocked
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        crosscorrelate,
+    )
+
+    t0 = time.perf_counter()
+    write_survey_caches(root)
+    log(f"[{card}] survey cold setup (1M + 2M mock rows, 4M HEALPix randoms, "
+        f"{SURVEY_PATCHES} kmeans patches, caches written): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    catalogs = tuple(Catalog(os.path.join(root, name)) for name in SURVEY_NAMES)
+    num_rows = sum(len(catalog.ra) for catalog in catalogs)
+    log(f"survey caches opened as Catalog: {time.perf_counter() - t0:.2f} s, "
+        f"{num_rows} rows")
+
+    (first, nz, stats), launches = run_path(
+        "survey (blocked crosscorrelate, tile store empty)",
+        lambda: survey_run(config, catalogs),
+        {"paircount_partials": 1, "paircount_segment_sum": 1},
+        launches_total,
+    )
+    log(f"survey first run: {format_stats(stats)}")
+    check(
+        launches.get("paircount_partials") == stats["num_block_pairs"]
+        == launches.get("paircount_segment_sum"),
+        f"survey: launches {launches} differ from the {stats['num_block_pairs']} "
+        "block pairs of the loop",
+    )
+    check(stats["store_misses"] > 0 and stats["store_hits"] == 0,
+          "survey: the first run found a warm tile store")
+    check_nz(nz, "survey", SURVEY_PATCHES)
+
+    (memory,) = crosscorrelate(
+        config, catalogs[0], catalogs[1], ref_rand=catalogs[2], device="cuda"
+    )
+    for name in ("dd", "rd"):
+        ours = getattr(first, name).counts.counts
+        expected = getattr(memory, name).counts.counts
+        err = np.abs(ours - expected).max() / np.abs(expected).max()
+        log(f"survey {name.upper()} blocked vs in-memory path: patch-pair "
+            f"max|err|/max {err:.3e}")
+        check(err <= RTOL, f"survey {name.upper()}: blocked off the in-memory path")
+    del memory
+
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    for name, count in (("DD", "cross DD"), ("RD", "cross RD")):
+        _, _, pairs = engine_inputs(links, catalogs, count)
+        slots = np.linspace(0, pairs.num_slots - 1, SURVEY_ORACLE_SLOTS).astype(int)
+        _, oracle, pairs, t_oracle = oracle_counts(links, catalogs, count, slots)
+        oracle_scale = links.edges.counts_to_scales(oracle)[0]
+        ours = main_path_counts(getattr(first, name.lower()), pairs, False)[slots]
+        err = np.abs(ours - oracle_scale).max() / np.abs(oracle_scale).max()
+        log(f"survey {name} vs float64 oracle ({SURVEY_ORACLE_SLOTS} of "
+            f"{pairs.num_slots} slots, {t_oracle:.1f} s): per-slot "
+            f"max|err|/max|oracle| {err:.3e}")
+        check(err <= RTOL, f"survey {name} off the oracle")
+    for catalog in catalogs:
+        catalog.drop_tile_cache()
+    torch.cuda.empty_cache()
+
+    log("-- survey: warm runs (tile store hits), each in a tile cache of its own")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for run in range(SURVEY_WARM_RUNS):
+        t0 = time.perf_counter()
+        wsp, nz, stats = survey_run(config, catalogs)
+        times.append(time.perf_counter() - t0)
+        log(f"[{card}] survey warm run {run}: {times[-1]:.3f} s; {format_stats(stats)}")
+        check(same_counts(wsp, first), "survey: a store-hit run differs from the first run")
+        check(stats["store_misses"] == 0, "survey: a warm run missed the tile store")
+    warm = statistics.median(times)
+    candidates = stats["candidate_pairs"]
+    log(f"[{card}] survey warm: {warm:.3f} s (median of {SURVEY_WARM_RUNS}) "
+        f"[{min(times):.3f}, {max(times):.3f}], {candidates:.4e} candidate pairs "
+        f"-> {candidates / warm:.4e} pairs/s; store-hit runs bitwise equal to "
+        f"the first; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # the engine's kernel time: the block pairs of one run, replayed on
+    # their resident inputs and timed with CUDA events
+    calls = []
+    engine = blocked.count_pairs_tiles
+
+    def capturing(*args, **kwargs):
+        calls.append((args, kwargs))
+        return engine(*args, **kwargs)
+
+    blocked.count_pairs_tiles = capturing
+    try:
+        survey_run(config, catalogs)
+    finally:
+        blocked.count_pairs_tiles = engine
+
+    def replay():
+        for args, kwargs in calls:
+            engine(*args, **kwargs)
+
+    engine_ms = cuda_ms(replay, 3)
+    host_s = sum(stats[key] for key in ("rows", "cols", "pairs", "queue"))
+    log(f"[{card}] survey engine kernels {engine_ms:.3f} ms over {len(calls)} block "
+        f"pairs (replayed, CUDA events) of the {warm * 1e3:.1f} ms warm run: idle "
+        f"share ~{1 - engine_ms / (warm * 1e3):.3f}; last warm run's drain wait "
+        f"{stats['drain_wait'] * 1e3:.1f} ms, queue {stats['queue'] * 1e3:.1f} ms, "
+        f"host phases (rows+cols+pairs+queue) {host_s * 1e3:.1f} ms")
+    del calls
+
+    log("-- survey: a run without the tile store (YAWT_TILE_STORE=0): every block packed and uploaded")
+    os.environ["YAWT_TILE_STORE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        wsp, _, stats = survey_run(config, catalogs)
+        seconds = time.perf_counter() - t0
+    finally:
+        del os.environ["YAWT_TILE_STORE"]
+    check(same_counts(wsp, first), "survey: the run without the store differs")
+    rate = stats["upload_bytes"] / max(stats["upload"], 1e-12)
+    log(f"[{card}] survey without the tile store: {seconds:.3f} s; uploads "
+        f"{stats['upload_bytes'] / 1e6:.1f} MB in {stats['upload'] * 1e3:.2f} ms "
+        f"on the card ({rate / 1e9:.2f} GB/s from pinned memory) against "
+        f"{engine_ms:.2f} ms of engine kernels; {format_stats(stats)}")
+
+    log("-- survey: child processes on the same caches (tile store warm)")
+    for kind in ("catalog", "lazy"):
+        out = os.path.join(root, f"{kind}.npz")
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--survey-child", kind,
+             root, out],
+            capture_output=True, text=True, timeout=600, check=False,
+        )
+        check(done.returncode == 0,
+              f"survey child '{kind}' failed:\n{done.stdout[-3000:]}\n"
+              f"{done.stderr[-3000:]}")
+        report = json.loads(done.stdout.strip().splitlines()[-1])
+        counts = np.load(out)
+        check(
+            np.array_equal(counts["dd"], first.dd.counts.counts)
+            and np.array_equal(counts["rd"], first.rd.counts.counts),
+            f"survey: the {kind} child's counts differ from the first run",
+        )
+        # anonymous memory where the kernel reports it, else all of it
+        main = "RssAnon" if "RssAnon" in report["base"] else "VmRSS"
+        base, opened, peak = (report[key] for key in ("base", "opened", "peak"))
+        others = ", ".join(
+            f"{key} {base[key] / 2**30:.3f} -> {peak[key] / 2**30:.3f} GiB"
+            for key in MEMORY_KINDS if key != main and key in base
+        )
+        log(f"[{card}] survey child {kind}: open {report['open_s']:.2f} s, open + "
+            f"run {report['total_s']:.2f} s; host memory {main} "
+            f"{base[main] / 2**30:.3f} GiB before opening, "
+            f"{opened[main] / 2**30:.3f} after, {peak[main] / 2**30:.3f} at the "
+            f"peak of the run: {(peak[main] - base[main]) / report['rows']:.1f} "
+            f"B/row over {report['rows']} rows ({others}); process peak RSS "
+            f"{report['max_rss'] / 2**30:.3f} GiB; bitwise equal to the first "
+            f"run; {format_stats(report['stats'])}")
 
 
 def main() -> None:
@@ -1188,6 +1568,10 @@ def main() -> None:
             f"{warm * 1e3:.3f} ms warm measurement")
     log(f"peak device memory over the timed paths "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del catalogs, reference, unknown, randoms
+
+    log("-- survey path (blocked crosscorrelate over disk caches, 7M rows)")
+    survey_path(card, config, launches_total)
 
     # K1.5 is K1.1 / K1.2 on signed weights: its launches are those of the
     # scalar path (half of them the kappa counts, half the nn normalisation)
@@ -1226,4 +1610,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--survey-child"]:
+        survey_child(*sys.argv[2:5])
+    else:
+        main()

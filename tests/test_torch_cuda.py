@@ -16,7 +16,8 @@ no row of a warp reaches; with unit weights (integer counts, exact in any
 order) they are ``torch.equal`` to the plain version, on hand-packed edge
 cases (``torch_chunk_cases.py``: a pair exactly on a threshold between
 tangent caps, padding chunks) and on catalog tiles, so a wrongly skipped
-pair shows.
+pair shows. The blocked measurement path on the card (lanes uploaded on a
+side stream, counts accumulated on the device) equals the in-memory path.
 """
 
 import numpy as np
@@ -390,3 +391,62 @@ def test_chunk_skip_follows_lanes_changed_in_place(device):
         )
         torch.cuda.synchronize()
         assert torch.equal(kernel, plain), step
+
+
+@pytest.mark.parametrize("shape", ["cross", "auto"])
+def test_blocked_path_matches_in_memory_on_the_card(device, monkeypatch, shape):
+    """The blocked path on the card (side-stream uploads, device
+    accumulation) equals the in-memory path on the card, is bitwise
+    deterministic, and equals its host-scatter mode."""
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation import blocked
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        autocorrelate,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+
+    mock = generate_mock_data(
+        num_reference=4000, num_unknown=6000, num_randoms=9000, seed=21
+    )
+    reference = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=12, device=device
+    )
+    centers = reference.get_centers()
+    unknown, randoms = (
+        Catalog.from_arrays(**mock[n], degrees=False, patch_centers=centers, device=device)
+        for n in ("unknown", "randoms")
+    )
+    config = Configuration.create(
+        rmin=500, rmax=3000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=4
+    )
+    if shape == "cross":
+        names = ("dd", "rd")
+
+        def measure(**kwargs):
+            return crosscorrelate(
+                config, reference, unknown, ref_rand=randoms, device=device,
+                **kwargs,
+            )[0]
+    else:
+        names = ("dd", "dr", "rr")
+
+        def measure(**kwargs):
+            return autocorrelate(config, reference, randoms, device=device, **kwargs)[0]
+
+    full = measure()
+    blocked.reset_phase_totals()
+    first, second = measure(max_resident_patches=4), measure(max_resident_patches=4)
+    assert blocked.PHASE_TOTALS["upload_bytes"] > 0
+    monkeypatch.setenv("YAWT_DEVICE_ACCUMULATE", "0")
+    host_mode = measure(max_resident_patches=4)
+    for name in names:
+        counts = getattr(first, name).counts.counts
+        expected = getattr(full, name).counts.counts
+        np.testing.assert_allclose(counts, expected, rtol=1e-6, atol=1e-6 * np.abs(expected).max())
+        np.testing.assert_array_equal(getattr(second, name).counts.counts, counts)
+        np.testing.assert_allclose(
+            getattr(host_mode, name).counts.counts, counts,
+            rtol=1e-6, atol=1e-6 * np.abs(expected).max(),
+        )

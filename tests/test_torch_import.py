@@ -36,6 +36,15 @@ SLICE_MODULES = [
     "yet_another_wizz_tpu_torch.redshifts",
     "yet_another_wizz_tpu_torch.examples",
     "yet_another_wizz_tpu_torch.interop",
+    "yet_another_wizz_tpu_torch.utils.healpix",
+    "yet_another_wizz_tpu_torch.utils.logging",
+    "yet_another_wizz_tpu_torch.randoms",
+    "yet_another_wizz_tpu_torch.catalog.patch",
+    "yet_another_wizz_tpu_torch.catalog.readers",
+    "yet_another_wizz_tpu_torch.catalog.ingest",
+    "yet_another_wizz_tpu_torch.catalog.lazy",
+    "yet_another_wizz_tpu_torch.catalog.tilestore",
+    "yet_another_wizz_tpu_torch.correlation.blocked",
 ]
 
 BLOCKED_IMPORT = """
@@ -45,6 +54,8 @@ sys.modules["yet_another_wizz_tpu"] = None
 # optional I/O packages: the main path must not need them
 sys.modules["h5py"] = None
 sys.modules["yaml"] = None
+sys.modules["pandas"] = None
+sys.modules["pyarrow"] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
 loaded = sorted(

@@ -10,7 +10,11 @@ package: patch-resolved catalogs, Morton-sorted
 point tiles, a cap-pruned tile-pair list, and the float64 estimators. The
 pair-count engine is a hand-written CUDA kernel
 (:mod:`yet_another_wizz_tpu_torch.ops.cuda_paircount`) for tensors on a
-CUDA device, with a plain PyTorch engine for tensors on the CPU.
+CUDA device, with a plain PyTorch engine for tensors on the CPU. Large
+catalogs are ingested into disk caches (``Catalog.from_file``,
+``Catalog.from_random`` with ``BoxRandoms`` / ``HealPixRandoms``), reopened
+in memory (``Catalog(cache)``) or lazily (``LazyCatalog``), and measured
+block by block with ``max_resident_patches``.
 
 This package imports neither ``jax`` nor ``yet_another_wizz_tpu``.
 """
@@ -34,12 +38,15 @@ __all__ = [
     "AngularCoordinates",
     "AngularDistances",
     "Binning",
+    "BoxRandoms",
     "Catalog",
     "Configuration",
     "CorrData",
     "CorrFunc",
     "CustomCosmology",
     "FLRWCosmology",
+    "HealPixRandoms",
+    "LazyCatalog",
     "Planck15",
     "RedshiftData",
     "__version__",
@@ -56,10 +63,14 @@ __all__ = [
 
 def __getattr__(name):
     # late imports keep config-only use free of torch
-    if name == "Catalog":
-        from yet_another_wizz_tpu_torch.catalog import Catalog
+    if name in ("Catalog", "LazyCatalog"):
+        from yet_another_wizz_tpu_torch import catalog
 
-        return Catalog
+        return getattr(catalog, name)
+    if name in ("BoxRandoms", "HealPixRandoms"):
+        from yet_another_wizz_tpu_torch import randoms
+
+        return getattr(randoms, name)
     if name == "Configuration":
         from yet_another_wizz_tpu_torch.config import Configuration
 

@@ -7,14 +7,20 @@ path: :meth:`Catalog.from_arrays` with the three patch-creation modes
 :meth:`Catalog.get_tiles`, which packs the catalog into the point tiles of
 the pair-count engine (:class:`~yet_another_wizz_tpu_torch.ops.tiles.TileSet`,
 the replacement for the reference's per-patch kd-trees; cached per
-(binning, counting-mode) fingerprint). File readers and the on-disk patch
-cache are not ported yet.
+(binning, counting-mode) fingerprint). The constructors from files,
+dataframes and random generators, the on-disk patch cache
+(``patch_{i}/data.bin`` + ``meta.yml`` + ``patch_ids.bin``, byte-compatible
+with the JAX package's: a cache written by either package opens in the
+other) and :meth:`Catalog.load_block`, the data unit of the blocked
+measurement path, are ported as well. The multi-process cache writer of the
+JAX package is not: :meth:`Catalog.to_cache` runs in one process.
 """
 
 from __future__ import annotations
 
 import logging
 from collections.abc import Mapping
+from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -25,7 +31,11 @@ from yet_another_wizz_tpu_torch.coordinates import (
     radec_to_xyz,
 )
 from yet_another_wizz_tpu_torch.datachunk import DataChunk, check_patch_ids
-from yet_another_wizz_tpu_torch.catalog.patch import Metadata
+from yet_another_wizz_tpu_torch.catalog.patch import (
+    Metadata,
+    read_patch_data,
+    write_patch_data,
+)
 from yet_another_wizz_tpu_torch.ops.kmeans import assign_patches, kmeans_patch_centers
 from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE, build_tile_set
 
@@ -40,6 +50,7 @@ if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 __all__ = [
+    "BlockData",
     "Catalog",
     "InconsistentPatchesError",
     "MemoryPatch",
@@ -47,11 +58,83 @@ __all__ = [
 
 logger = logging.getLogger(__name__)
 
+PATCH_NAME_TEMPLATE = "patch_{:}"
 DEFAULT_PROBE_SIZE = 500_000
 
 
 class InconsistentPatchesError(Exception):
     """Patch centers or ids of two catalogs do not match."""
+
+
+def prepare_cache_directory(cache: Path, overwrite: bool) -> None:
+    """Create an empty cache directory (shared by every cache writer): an
+    existing non-empty directory raises unless ``overwrite``, which clears
+    it."""
+    if cache.exists():
+        if not overwrite and any(cache.iterdir()):
+            raise FileExistsError(f"cache directory not empty: {cache}")
+        if overwrite:
+            import shutil
+
+            shutil.rmtree(cache)
+    cache.mkdir(parents=True, exist_ok=True)
+
+
+def write_patch_ids_file(cache_directory: Path, num_patches: int) -> None:
+    """Write the reference's ``patch_ids.bin`` (sorted int16 ids, raw
+    tofile; yaw/catalog/catalog.py:529-530) so caches written here reopen in
+    the reference package, whose open path requires the file."""
+    from yet_another_wizz_tpu_torch.datachunk import PATCH_ID_DTYPE
+
+    np.arange(num_patches, dtype=PATCH_ID_DTYPE).tofile(
+        Path(cache_directory) / "patch_ids.bin"
+    )
+
+
+def discover_patch_dirs(
+    cache_directory: Path, *, require_contiguous: bool = False
+) -> list[Path]:
+    """The ``patch_{i}`` directories of a cache, sorted by patch id.
+    Shared by the resident and the lazy catalog open paths so the cache
+    naming scheme lives in one place."""
+    if not cache_directory.exists():
+        raise FileNotFoundError(f"no cache found: {cache_directory}")
+    patch_dirs = sorted(
+        (
+            p
+            for p in cache_directory.glob(PATCH_NAME_TEMPLATE.format("*"))
+            # only patch DIRECTORIES: the top-level patch_ids.bin file
+            # matches the glob too
+            if p.is_dir()
+        ),
+        key=lambda p: int(p.name.split("_")[1]),
+    )
+    if not patch_dirs:
+        raise FileNotFoundError(f"cache is empty: {cache_directory}")
+    if require_contiguous:
+        expected = [
+            cache_directory / PATCH_NAME_TEMPLATE.format(pid)
+            for pid in range(len(patch_dirs))
+        ]
+        if patch_dirs != expected:
+            raise ValueError(
+                f"cache has non-contiguous patch ids: {cache_directory}"
+            )
+    return patch_dirs
+
+
+class BlockData:
+    """Columns of one contiguous patch block (patch ids rebased to the
+    block): the data unit the blocked measurement path keeps resident."""
+
+    __slots__ = ("xyz", "patch_ids", "weights", "redshifts", "kappa")
+
+    def __init__(self, *, xyz, patch_ids, weights, redshifts, kappa):
+        self.xyz = xyz
+        self.patch_ids = patch_ids
+        self.weights = weights
+        self.redshifts = redshifts
+        self.kappa = kappa
 
 
 class MemoryPatch:
@@ -170,11 +253,14 @@ def _resolve_patch_assignment(
 class Catalog(Mapping):
     """A point catalog split into spatial patches.
 
-    Create instances with :meth:`from_arrays`. Iterating/indexing yields
-    per-patch views.
+    Create instances with :meth:`from_arrays`, :meth:`from_file`,
+    :meth:`from_dataframe` or :meth:`from_random`; ``Catalog(cache_directory)``
+    reopens a cache written by :meth:`to_cache` (or by the JAX package).
+    Iterating/indexing yields per-patch views.
     """
 
     __slots__ = (
+        "cache_directory",
         "_chunk",
         "_xyz",
         "_patch_ids",
@@ -183,13 +269,81 @@ class Catalog(Mapping):
         "num_patches",
         "_tile_cache",
         "_bin_sums_cache",
+        "__weakref__",  # the blocked path's tile caches key catalogs weakly
     )
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "reopening a catalog cache is not ported yet; use "
-            "Catalog.from_arrays"
+    def __init__(self, cache_directory: Path | str) -> None:
+        self.cache_directory = Path(cache_directory)
+        logger.info("restoring from cache directory: %s", cache_directory)
+        # contiguity is load-bearing: a gapped cache would produce patch
+        # ids >= num_patches and an out-of-bounds write in the native
+        # geometry kernel
+        patch_dirs = discover_patch_dirs(
+            self.cache_directory, require_contiguous=True
         )
+
+        # numpy file reads release the GIL, so a thread pool overlaps the
+        # per-patch disk reads
+        from concurrent.futures import ThreadPoolExecutor
+
+        from yet_another_wizz_tpu_torch.utils.misc import host_thread_count
+
+        def load(path):
+            _, data = read_patch_data(path / "data.bin")
+            return data
+
+        max_workers = min(host_thread_count(16), len(patch_dirs))
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            chunks = list(pool.map(load, patch_dirs))
+
+        self._chunk = np.concatenate(chunks)
+        self._patch_ids = np.repeat(
+            np.arange(len(chunks), dtype=np.int32), [len(c) for c in chunks]
+        )
+        self.num_patches = len(patch_dirs)
+        self._xyz = radec_to_xyz(self._chunk["ra"], self._chunk["dec"])
+        # the meta.yml files record the centers the points were ASSIGNED
+        # with (possibly applied externally); trust them like the
+        # reference does instead of recomputing drifted means
+        stored = self._centers_from_metadata(patch_dirs)
+        self._init_patch_geometry(centers_xyz=stored)
+        self._tile_cache = {}
+
+    @staticmethod
+    def _centers_from_metadata(patch_dirs) -> NDArray | None:
+        """Stored patch centers from the cache's meta.yml files, or None
+        when any is missing (partial caches recompute)."""
+        centers = []
+        for path in patch_dirs:
+            meta_file = path / "meta.yml"
+            if not meta_file.exists():
+                return None
+            centers.append(Metadata.from_file(meta_file).center.to_3d())
+        return np.concatenate(centers)
+
+    @classmethod
+    def _from_streamed(
+        cls: type[Self],
+        chunk: NDArray,
+        patch_ids: NDArray,
+        num_patches: int,
+        cache_directory: Path | str | None,
+        centers_xyz: NDArray | None = None,
+    ) -> Self:
+        """Construct directly from streaming-ingestion output (patch-major
+        rows with known assignment), skipping the cache read-back."""
+        check_patch_ids(num_patches - 1)  # int16 bound (<= 32767)
+        new = cls.__new__(cls)
+        new.cache_directory = (
+            Path(cache_directory) if cache_directory is not None else None
+        )
+        new._chunk = chunk
+        new._patch_ids = np.asarray(patch_ids, dtype=np.int32)
+        new.num_patches = num_patches
+        new._xyz = radec_to_xyz(chunk["ra"], chunk["dec"])
+        new._init_patch_geometry(centers_xyz=centers_xyz)
+        new._tile_cache = {}
+        return new
 
     @classmethod
     def from_arrays(
@@ -205,18 +359,19 @@ class Catalog(Mapping):
         patch_ids: ArrayLike | None = None,
         patch_num: int | None = None,
         probe_size: int = DEFAULT_PROBE_SIZE,
-        cache_directory=None,
+        cache_directory: Path | str | None = None,
+        overwrite: bool = False,
         device: torch.device | str = "cuda",
         **_ignored,
     ) -> Self:
-        """Create a catalog from per-column arrays (the in-memory
-        constructor). Catalogs large enough for the device patch
-        assignment (:data:`~yet_another_wizz_tpu_torch.ops.kmeans.
+        """Create a catalog from per-column arrays (the primary in-memory
+        constructor; all other constructors funnel through it). Catalogs
+        large enough for the device patch assignment
+        (:data:`~yet_another_wizz_tpu_torch.ops.kmeans.
         DEVICE_ASSIGN_THRESHOLD`) run it on ``device``, which raises when it
-        is a CUDA device and CUDA is not available. Writing a
-        ``cache_directory`` is not ported yet."""
-        if cache_directory is not None:
-            raise NotImplementedError("catalog caches are not ported yet")
+        is a CUDA device and CUDA is not available. With
+        ``cache_directory`` the catalog is also written there
+        (:meth:`to_cache`)."""
         chunk = DataChunk.create(
             ra, dec,
             weights=weights, redshifts=redshifts, kappa=kappa,
@@ -226,6 +381,7 @@ class Catalog(Mapping):
         new._chunk = chunk
         new._xyz = radec_to_xyz(chunk["ra"], chunk["dec"])
         new._tile_cache = {}
+        new.cache_directory = None
 
         ids, centers_xyz = _resolve_patch_assignment(
             new._xyz,
@@ -248,6 +404,9 @@ class Catalog(Mapping):
             raise ValueError(f"patches with no data: {empty}")
 
         new._init_patch_geometry(centers_xyz=centers_xyz)
+
+        if cache_directory is not None:
+            new.to_cache(cache_directory, overwrite=overwrite)
         return new
 
     def _init_patch_geometry(self, centers_xyz: NDArray | None) -> None:
@@ -316,6 +475,229 @@ class Catalog(Mapping):
             max_chord = np.zeros(num)
             np.maximum.at(max_chord, ids, chord)
         return 2.0 * np.arcsin(np.clip(max_chord / 2.0, 0.0, 1.0))
+
+    def to_cache(
+        self, cache_directory: Path | str, *, overwrite: bool = False
+    ) -> None:
+        """Write the catalog to a reference-compatible patch cache (one
+        process; the JAX package's multi-process variant is not ported)."""
+        cache = Path(cache_directory)
+        prepare_cache_directory(cache, overwrite)
+        logger.info(
+            "writing %d patches to cache: %s", self.num_patches, cache
+        )
+        # one stable sort + boundary search instead of a full-array
+        # boolean mask per patch
+        order = np.argsort(self._patch_ids, kind="stable")
+        sorted_chunk = self._chunk[order]
+        bounds = np.searchsorted(
+            self._patch_ids[order], np.arange(self.num_patches + 1)
+        )
+        for pid in range(self.num_patches):
+            rows = sorted_chunk[bounds[pid] : bounds[pid + 1]]
+            patch_dir = cache / PATCH_NAME_TEMPLATE.format(pid)
+            patch_dir.mkdir()
+            write_patch_data(patch_dir / "data.bin", rows)
+            # record the catalog's own (possibly applied) patch center
+            # so reopening the cache preserves it
+            meta = Metadata.compute(
+                DataChunk.get_coords(rows),
+                weights=DataChunk.getattr(rows, "weights"),
+                center=AngularCoordinates.from_3d(
+                    self.patch_centers_xyz[pid : pid + 1]
+                ),
+            )
+            meta.to_file(patch_dir / "meta.yml")
+        write_patch_ids_file(cache, self.num_patches)
+        self.cache_directory = cache
+
+    @classmethod
+    def from_dataframe(
+        cls: type[Self],
+        cache_directory: Path | str | None,
+        dataframe,
+        *,
+        ra_name: str,
+        dec_name: str,
+        weight_name: str | None = None,
+        redshift_name: str | None = None,
+        kappa_name: str | None = None,
+        patch_centers=None,
+        patch_name: str | None = None,
+        patch_num: int | None = None,
+        degrees: bool = True,
+        overwrite: bool = False,
+        probe_size: int = DEFAULT_PROBE_SIZE,
+        device: torch.device | str = "cuda",
+        **_ignored,
+    ) -> Self:
+        """Create a catalog from a pandas-like dataframe. ``device`` (which
+        raises when it is a CUDA device and CUDA is not available) runs the
+        patch assignment as in :meth:`from_arrays`."""
+        from yet_another_wizz_tpu_torch.ops.paircount import resolve_device
+
+        device = resolve_device(device)
+
+        def column(name):
+            return np.asarray(dataframe[name]) if name is not None else None
+
+        return cls.from_arrays(
+            column(ra_name),
+            column(dec_name),
+            weights=column(weight_name),
+            redshifts=column(redshift_name),
+            kappa=column(kappa_name),
+            degrees=degrees,
+            patch_centers=patch_centers,
+            patch_ids=column(patch_name),
+            patch_num=patch_num,
+            probe_size=probe_size,
+            cache_directory=cache_directory,
+            overwrite=overwrite,
+            device=device,
+        )
+
+    @classmethod
+    def from_file(
+        cls: type[Self],
+        cache_directory: Path | str | None,
+        path: Path | str,
+        *,
+        ra_name: str,
+        dec_name: str,
+        weight_name: str | None = None,
+        redshift_name: str | None = None,
+        kappa_name: str | None = None,
+        patch_centers=None,
+        patch_name: str | None = None,
+        patch_num: int | None = None,
+        degrees: bool = True,
+        overwrite: bool = False,
+        probe_size: int = DEFAULT_PROBE_SIZE,
+        chunksize: int | None = None,
+        streaming: bool | None = None,
+        progress: bool = False,
+        max_workers: int | None = None,
+        device: torch.device | str = "cuda",
+        **_ignored,
+    ) -> Self:
+        """Create a catalog from a FITS / HDF5 / Parquet / CSV file
+        (:mod:`~yet_another_wizz_tpu_torch.catalog.readers`; the HDF5,
+        Parquet and CSV readers need ``h5py``, ``pyarrow`` and ``pandas``).
+
+        Inputs larger than one chunk are streamed through patch assignment
+        into the disk cache with bounded memory (``streaming`` forces or
+        disables this; it requires a ``cache_directory``). ``max_workers``
+        bounds the host worker pools of the ingestion. ``device`` (which
+        raises when it is a CUDA device and CUDA is not available) runs the
+        patch assignment as in :meth:`from_arrays`.
+        """
+        from yet_another_wizz_tpu_torch.catalog.readers import new_filereader
+        from yet_another_wizz_tpu_torch.ops.paircount import resolve_device
+        from yet_another_wizz_tpu_torch.utils.misc import thread_limit
+
+        device = resolve_device(device)
+        logger.info("reading catalog file: %s", path)
+        with thread_limit(max_workers):
+            with new_filereader(
+                path, ra_name=ra_name, dec_name=dec_name,
+                weight_name=weight_name, redshift_name=redshift_name,
+                kappa_name=kappa_name, patch_name=patch_name,
+                degrees=degrees, chunksize=chunksize,
+            ) as reader:
+                if streaming is None:
+                    streaming = (
+                        cache_directory is not None and reader.num_chunks > 1
+                    )
+                if streaming:
+                    from yet_another_wizz_tpu_torch.catalog.ingest import (
+                        resolve_patch_centers,
+                        write_patches_streaming,
+                    )
+
+                    # patch-source priority matches the in-memory path
+                    # (_resolve_patch_assignment): explicit centers beat a
+                    # patch-id column beat kmeans
+                    centers = None
+                    if patch_centers is not None or patch_name is None:
+                        centers = resolve_patch_centers(
+                            reader,
+                            patch_centers=patch_centers,
+                            patch_num=patch_num,
+                            probe_size=probe_size,
+                            device=device,
+                        )
+                        if centers is None:
+                            raise ValueError(
+                                "exactly one of 'patch_centers', 'patch_name', "
+                                "or 'patch_num' is required"
+                            )
+                    # stream through patch assignment, keeping the assembled
+                    # data so the catalog is constructed directly (no cache
+                    # read-back)
+                    num_patches, (chunk, patch_ids) = write_patches_streaming(
+                        reader, cache_directory, centers, overwrite=overwrite,
+                        progress=progress, device=device,
+                    )
+                    return cls._from_streamed(
+                        chunk, patch_ids, num_patches, cache_directory,
+                        centers_xyz=centers,
+                    )
+
+                chunks = [chunk for chunk in reader]
+            data = np.concatenate(chunks)
+
+            return cls.from_arrays(
+                data["ra"],
+                data["dec"],
+                weights=DataChunk.getattr(data, "weights"),
+                redshifts=DataChunk.getattr(data, "redshifts"),
+                kappa=DataChunk.getattr(data, "kappa"),
+                degrees=False,  # readers convert to radian
+                patch_centers=patch_centers,
+                patch_ids=DataChunk.getattr(data, "patch_ids"),
+                patch_num=patch_num,
+                probe_size=probe_size,
+                cache_directory=cache_directory,
+                overwrite=overwrite,
+                device=device,
+            )
+
+    @classmethod
+    def from_random(
+        cls: type[Self],
+        cache_directory: Path | str | None,
+        generator,
+        num_randoms: int,
+        *,
+        patch_centers=None,
+        patch_num: int | None = None,
+        overwrite: bool = False,
+        probe_size: int = DEFAULT_PROBE_SIZE,
+        device: torch.device | str = "cuda",
+        **_ignored,
+    ) -> Self:
+        """Create a catalog by sampling a random point generator
+        (:mod:`~yet_another_wizz_tpu_torch.randoms`). ``device`` (which
+        raises when it is a CUDA device and CUDA is not available) runs the
+        patch assignment as in :meth:`from_arrays`."""
+        from yet_another_wizz_tpu_torch.ops.paircount import resolve_device
+
+        device = resolve_device(device)
+        chunk = generator(num_randoms)
+        return cls.from_arrays(
+            chunk["ra"],
+            chunk["dec"],
+            weights=DataChunk.getattr(chunk, "weights"),
+            redshifts=DataChunk.getattr(chunk, "redshifts"),
+            degrees=False,
+            patch_centers=patch_centers,
+            patch_num=patch_num,
+            probe_size=probe_size,
+            cache_directory=cache_directory,
+            overwrite=overwrite,
+            device=device,
+        )
 
     # -- Mapping interface over patches ------------------------------------
 
@@ -449,6 +831,23 @@ class Catalog(Mapping):
         ).reshape(len(binning), self.num_patches)
         memo[key] = sums
         return sums.copy()
+
+    def load_block(self, patch_lo: int, patch_hi: int) -> BlockData:
+        """Columns of the patches in ``[patch_lo, patch_hi)`` with patch
+        ids rebased to the block: the unit of residency of the blocked
+        (out-of-core) measurement path."""
+        select = (self._patch_ids >= patch_lo) & (self._patch_ids < patch_hi)
+
+        def sub(col):
+            return None if col is None else col[select]
+
+        return BlockData(
+            xyz=self._xyz[select],
+            patch_ids=self._patch_ids[select] - patch_lo,
+            weights=sub(self.weights),
+            redshifts=sub(self.redshifts),
+            kappa=sub(self.kappa),
+        )
 
     def get_centers(self) -> AngularCoordinates:
         """Patch cap centers."""

@@ -1,8 +1,13 @@
-"""Per-patch summary statistics.
+"""Per-patch disk cache: binary data file plus YAML metadata.
 
-Ported from the JAX package's ``catalog/patch.py`` as far as the in-memory
-catalog needs it: :class:`Metadata` (record count, sum of weights, cap
-center and radius). The on-disk patch cache is not ported yet.
+Ported from the JAX package's ``catalog/patch.py``: each patch directory
+holds ``data.bin`` (one :class:`~yet_another_wizz_tpu_torch.datachunk.
+DataChunkInfo` header byte followed by raw float64 structured rows) and
+``meta.yml`` (record count, sum of weights, cap center and radius). The
+format is the JAX package's byte for byte (and the reference's), so a cache
+written by either package opens in the other. :class:`PatchWriter` appends
+chunks with buffering. ``yaml`` is imported only where metadata is read or
+written.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from yet_another_wizz_tpu_torch.coordinates import AngularCoordinates, AngularDistances
+from yet_another_wizz_tpu_torch.datachunk import DataChunk, DataChunkInfo
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -20,7 +26,13 @@ if TYPE_CHECKING:
 
 __all__ = [
     "Metadata",
+    "PatchWriter",
+    "read_patch_data",
+    "write_patch_data",
 ]
+
+BUFFERSIZE = 65_536
+"""Number of rows buffered by :class:`PatchWriter` before flushing."""
 
 
 class Metadata:
@@ -109,3 +121,74 @@ class Metadata:
 
         with Path(path).open("w") as f:
             yaml.safe_dump(self.to_dict(), f)
+
+
+def write_patch_data(path: Path | str, chunk: NDArray) -> None:
+    """Write a structured-array chunk as a patch ``data.bin`` file."""
+    info = DataChunk.get_info(chunk)
+    with Path(path).open("wb") as f:
+        f.write(info.to_bytes())
+        chunk.tofile(f)
+
+
+def read_patch_data(path: Path | str) -> tuple[DataChunkInfo, NDArray]:
+    """Read a patch ``data.bin`` file back into a structured array."""
+    with Path(path).open("rb") as f:
+        info = DataChunkInfo.from_bytes(f.read(1))
+        dtype = np.dtype([(attr, "f8") for attr in info.get_list()])
+        raw = np.fromfile(f, dtype=np.byte)
+    return info, raw.view(dtype)
+
+
+class PatchWriter:
+    """Buffered, append-mode writer for one patch's ``data.bin``."""
+
+    __slots__ = ("cache_path", "_chunk_info", "_buffer", "_opened")
+
+    def __init__(self, cache_path: Path | str, chunk_info: DataChunkInfo) -> None:
+        self.cache_path = Path(cache_path)
+        if self.cache_path.exists():
+            raise FileExistsError(f"directory already exists: {self.cache_path}")
+        self.cache_path.mkdir(parents=True)
+
+        chunk_info = chunk_info.copy()
+        chunk_info.has_patch_ids = False  # ids are implicit in the directory
+        self._chunk_info = chunk_info
+        self._buffer: list[NDArray] = []
+        self._opened = False
+
+    @property
+    def data_path(self) -> Path:
+        return self.cache_path / "data.bin"
+
+    @property
+    def num_buffered(self) -> int:
+        return sum(len(chunk) for chunk in self._buffer)
+
+    def process_chunk(self, chunk: NDArray) -> None:
+        """Queue a chunk for writing; flushes when the buffer is full."""
+        self._buffer.append(chunk)
+        if self.num_buffered >= BUFFERSIZE:
+            self.flush()
+
+    def flush(self) -> None:
+        """Append all buffered rows to disk."""
+        if not self._buffer:
+            return
+        mode = "ab" if self._opened else "wb"
+        with self.data_path.open(mode) as f:
+            if not self._opened:
+                f.write(self._chunk_info.to_bytes())
+                self._opened = True
+            for chunk in self._buffer:
+                chunk.tofile(f)
+        self._buffer = []
+
+    def finalize(self) -> None:
+        """Flush pending rows, writing the header even for empty patches."""
+        if not self._opened:
+            mode_chunk = np.empty(
+                0, dtype=[(a, "f8") for a in self._chunk_info.get_list()]
+            )
+            self._buffer.insert(0, mode_chunk)
+        self.flush()

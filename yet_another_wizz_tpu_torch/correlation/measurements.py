@@ -1,7 +1,7 @@
 """Cross- and autocorrelation measurement functions.
 
-Ported from the JAX package's ``correlation/measurements.py`` for the
-in-memory engine path: :func:`autocorrelate`, :func:`crosscorrelate` and
+Ported from the JAX package's ``correlation/measurements.py``:
+:func:`autocorrelate`, :func:`crosscorrelate` and
 their scalar-field variants, the patch-consistency checks, and the
 :class:`PatchLinkage` scheduling helper, mirroring the reference
 ``yaw.correlation.measurements`` (yaw/correlation/measurements.py:65-794),
@@ -17,14 +17,20 @@ first result is read: each result is copied to pinned host memory without
 blocking, and the host waits for one count at a time while it
 post-processes the previous one.
 
-Not ported yet: the blocked out-of-core path (``max_resident_patches``),
-multi-device execution (``mesh``, ``data_sharding``) and the
-exact-boundary ``audit``. Those parameters raise ``NotImplementedError``
-when given a value other than their default.
+With ``max_resident_patches`` the counts stream through the blocked
+out-of-core path instead (:mod:`yet_another_wizz_tpu_torch.correlation.
+blocked`), which also takes a disk-backed
+:class:`~yet_another_wizz_tpu_torch.catalog.lazy.LazyCatalog`; the count
+types of one measurement share one tile cache.
+
+Not ported yet: multi-device execution (``mesh``, ``data_sharding``) and
+the exact-boundary ``audit``. Those parameters raise
+``NotImplementedError`` when given a value other than their default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import TYPE_CHECKING
 
@@ -83,18 +89,34 @@ LINKAGE_SLACK = 1.0 + 1e-9
 angular scale are never pruned."""
 
 
-def _check_in_memory(
-    max_resident_patches, audit, mesh, data_sharding
-) -> None:
+def _check_supported(audit, mesh, data_sharding) -> None:
     """Raise for the execution options this package does not run yet."""
-    if max_resident_patches is not None:
-        raise NotImplementedError(
-            "the blocked path ('max_resident_patches') is not ported yet"
-        )
     if audit:
         raise NotImplementedError("the boundary audit is not ported yet")
     if mesh not in (None, "single") or data_sharding != "replicated":
         raise NotImplementedError("multi-device execution is not ported yet")
+
+
+@contextlib.contextmanager
+def _measurement_cache(max_resident_patches):
+    """The tile cache the count types of one blocked measurement share
+    (:func:`~yet_another_wizz_tpu_torch.correlation.blocked.
+    measurement_tile_cache`): the caller's ambient cache when one is open,
+    else a new one for this measurement; None for the in-memory path."""
+    if max_resident_patches is None:
+        yield None
+        return
+    from yet_another_wizz_tpu_torch.correlation.blocked import (
+        active_tile_cache,
+        measurement_tile_cache,
+    )
+
+    ambient = active_tile_cache()
+    if ambient is not None:
+        yield ambient
+        return
+    with measurement_tile_cache() as cache:
+        yield cache
 
 
 def _preferred_tile_layout(
@@ -249,10 +271,13 @@ class PatchLinkage:
         mesh=None,
         data_sharding: str = "replicated",
         _defer: bool = False,
+        _tile_cache=None,
     ) -> list[NormalisedCounts]:
         """Count pairs between two catalogs (or within one for an
         autocorrelation), one :class:`NormalisedCounts` per scale, on
-        ``device``.
+        ``device``. With ``max_resident_patches`` the count runs through the
+        blocked path (:meth:`_run_blocked`), sharing ``_tile_cache`` (a
+        measurement's tile cache) when given.
 
         ``binned2`` controls whether the second catalog is resolved into
         redshift bins (requiring equal bins on both sides of a pair); by
@@ -265,12 +290,12 @@ class PatchLinkage:
         post-processing happen at call time.
 
         ``max_workers`` bounds the HOST worker pools this count creates
-        (the float64 ``oracle`` backend processes). ``progress`` has no
-        effect on the in-memory path.
+        (the float64 ``oracle`` backend processes). ``progress`` shows the
+        blocked path's progress; it has no effect on the in-memory path.
         """
         from yet_another_wizz_tpu_torch.utils.misc import thread_limit
 
-        _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+        _check_supported(audit, mesh, data_sharding)
         if count_type_info is not None:
             logger.info("counting %s from patch pairs", count_type_info)
 
@@ -279,6 +304,19 @@ class PatchLinkage:
         catalog2 = main_catalog if auto else optional_catalog[0]
         if binned2 is None:
             binned2 = auto
+
+        if max_resident_patches is not None:
+            with thread_limit(max_workers):
+                counts, sum_weights = self._run_blocked(
+                    catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
+                    backend=backend, device=device,
+                    max_resident_patches=max_resident_patches,
+                    progress=progress, tile_cache=_tile_cache,
+                )
+            result = [
+                NormalisedCounts(per_scale, sum_weights) for per_scale in counts
+            ]
+            return (lambda: result) if _defer else result
 
         with thread_limit(max_workers):
             finalize_engine = self._run_engine(
@@ -343,6 +381,38 @@ class PatchLinkage:
             ]
 
         return finish if outer_defer else finish()
+
+    def _run_blocked(
+        self, catalog1, catalog2, *, auto, binned2, mode, backend, device,
+        max_resident_patches, progress=False, tile_cache=None,
+    ):
+        """The device-memory-bounded path: stream patch blocks through the
+        engine (:func:`~yet_another_wizz_tpu_torch.correlation.blocked.
+        count_pairs_blocked`); the normalisation comes from the catalogs'
+        own per-bin weight sums, so a ``LazyCatalog`` works as well."""
+        from yet_another_wizz_tpu_torch.correlation.blocked import (
+            count_pairs_blocked,
+        )
+
+        binning = self.config.binning.binning
+        num_bins = len(binning)
+        per_scale = count_pairs_blocked(
+            self.edges, self.linkage, catalog1, catalog2, binning,
+            auto=auto, binned2=binned2, mode=mode,
+            max_resident_patches=max_resident_patches, backend=backend,
+            device=device, progress=progress, cache=tile_cache,
+        )
+        counts = [
+            PatchedCounts(binning, scale_counts, auto=auto)
+            for scale_counts in per_scale
+        ]
+        sum_weights = PatchedSumWeights(
+            binning,
+            catalog1.bin_sum_weights(binning, num_bins),
+            catalog2.bin_sum_weights(binning if binned2 else None, num_bins),
+            auto=auto,
+        )
+        return counts, sum_weights
 
     def _build_engine_inputs(
         self, catalog1, catalog2, *, auto=False, binned2=False, mode="nn"
@@ -505,15 +575,15 @@ def autocorrelate(
 
     Returns one :class:`CorrFunc` per configured scale, holding DD, DR and
     (optionally) RR pair counts; with RR present the Landy-Szalay estimator
-    becomes available. The pair counts run on ``device``, as in
-    :func:`crosscorrelate`.
+    becomes available. The pair counts run on ``device``, in memory or
+    with ``max_resident_patches`` blocked, as in :func:`crosscorrelate`.
     """
-    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    _check_supported(audit, mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(data, random)
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
-        device=device,
+        device=device, max_resident_patches=max_resident_patches,
     )
 
     logger.info(
@@ -528,18 +598,22 @@ def autocorrelate(
 
     # queue all count types on the device first, then finalize in order:
     # the host waits for one count while later ones still run
-    dd = links.count_pairs(data, **kwargs, count_type_info="DD", _defer=True)
-    # data x random pairs are counted between matching redshift bins on
-    # both sides, like the reference's binned random trees
-    dr = links.count_pairs(
-        data, random, binned2=True, **kwargs, count_type_info="DR",
-        _defer=True,
-    )
-    optional_random = random if count_rr else None
-    rr = links.count_pairs_optional(
-        optional_random, **kwargs, count_type_info="RR", _defer=True
-    )
-    dd, dr, rr = dd(), dr(), rr()
+    with _measurement_cache(max_resident_patches) as tile_cache:
+        kwargs["_tile_cache"] = tile_cache
+        dd = links.count_pairs(
+            data, **kwargs, count_type_info="DD", _defer=True
+        )
+        # data x random pairs are counted between matching redshift bins on
+        # both sides, like the reference's binned random trees
+        dr = links.count_pairs(
+            data, random, binned2=True, **kwargs, count_type_info="DR",
+            _defer=True,
+        )
+        optional_random = random if count_rr else None
+        rr = links.count_pairs_optional(
+            optional_random, **kwargs, count_type_info="RR", _defer=True
+        )
+        dd, dr, rr = dd(), dr(), rr()
     return [CorrFunc(a, b, None, c) for a, b, c in zip(dd, dr, rr)]
 
 
@@ -568,9 +642,12 @@ def crosscorrelate(
 
     The pair counts run on ``device`` (default ``"cuda"``, which raises
     when CUDA is not available): the CUDA kernels on a CUDA device, their
-    plain PyTorch versions with ``device="cpu"``.
+    plain PyTorch versions with ``device="cpu"``. With
+    ``max_resident_patches`` they stream through the blocked out-of-core
+    path (catalogs may then be ``LazyCatalog`` objects), with one tile cache
+    shared by the count types.
     """
-    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    _check_supported(audit, mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, ref_rand, unk_rand)
     count_dr = unk_rand is not None
@@ -580,7 +657,7 @@ def crosscorrelate(
 
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
-        device=device,
+        device=device, max_resident_patches=max_resident_patches,
     )
     logger.info(
         "computing cross-correlation from DD%s%s%s",
@@ -599,19 +676,21 @@ def crosscorrelate(
 
     # queue all count types, then finalize in order (the host waits for
     # one count while later ones still run on the device)
-    dd = links.count_pairs(
-        reference, unknown, **kwargs, count_type_info="DD", _defer=True
-    )
-    dr = links.count_pairs_optional(
-        reference, unk_rand, **kwargs, count_type_info="DR", _defer=True
-    )
-    rd = links.count_pairs_optional(
-        ref_rand, unknown, **kwargs, count_type_info="RD", _defer=True
-    )
-    rr = links.count_pairs_optional(
-        ref_rand, unk_rand, **kwargs, count_type_info="RR", _defer=True
-    )
-    dd, dr, rd, rr = dd(), dr(), rd(), rr()
+    with _measurement_cache(max_resident_patches) as tile_cache:
+        kwargs["_tile_cache"] = tile_cache
+        dd = links.count_pairs(
+            reference, unknown, **kwargs, count_type_info="DD", _defer=True
+        )
+        dr = links.count_pairs_optional(
+            reference, unk_rand, **kwargs, count_type_info="DR", _defer=True
+        )
+        rd = links.count_pairs_optional(
+            ref_rand, unknown, **kwargs, count_type_info="RD", _defer=True
+        )
+        rr = links.count_pairs_optional(
+            ref_rand, unk_rand, **kwargs, count_type_info="RR", _defer=True
+        )
+        dd, dr, rd, rr = dd(), dr(), rd(), rr()
     return [CorrFunc(a, b, c, d) for a, b, c, d in zip(dd, dr, rd, rr)]
 
 
@@ -652,15 +731,19 @@ def autocorrelate_scalar(
     data_sharding: str = "replicated",
 ) -> list[ScalarCorrFunc]:
     """Measure the angular autocorrelation amplitude of a scalar (kappa)
-    field in bins of redshift, on ``device`` as in :func:`autocorrelate`."""
-    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    field in bins of redshift, on ``device`` (in memory or with
+    ``max_resident_patches`` blocked) as in :func:`autocorrelate`."""
+    _check_supported(audit, mesh, data_sharding)
     device = resolve_device(device)
     logger.info("computing scalar auto-correlation with DD")
     links = PatchLinkage.from_catalogs(config, data)
-    dd = links.count_scalar_pairs(
-        data, mode="kk", backend=backend, device=device, progress=progress,
-        max_workers=max_workers, count_type_info="DD",
-    )
+    with _measurement_cache(max_resident_patches) as tile_cache:
+        dd = links.count_scalar_pairs(
+            data, mode="kk", backend=backend, device=device,
+            progress=progress, max_workers=max_workers,
+            max_resident_patches=max_resident_patches,
+            count_type_info="DD", _tile_cache=tile_cache,
+        )
     return [ScalarCorrFunc(counts) for counts in dd]
 
 
@@ -684,11 +767,13 @@ def crosscorrelate_scalar(
     (the reference's ``crosscorrelate_scalar`` semantics: counting mode
     ``kn`` weights the redshift-binned reference side by kappa * weight,
     yaw/correlation/measurements.py:709-800), on ``device`` as in
-    :func:`crosscorrelate`.
+    :func:`crosscorrelate` (in memory or with ``max_resident_patches``
+    blocked).
 
     Without unknown randoms the counts are normalised by the mean kappa
-    over the footprint instead of a DR term."""
-    _check_in_memory(max_resident_patches, audit, mesh, data_sharding)
+    over the footprint instead of a DR term (from the in-memory tiles, so
+    a ``LazyCatalog`` reference needs ``unk_rand``)."""
+    _check_supported(audit, mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, unk_rand)
     count_dr = unk_rand is not None
@@ -702,26 +787,28 @@ def crosscorrelate_scalar(
 
     kwargs = dict(
         backend=backend, device=device, progress=progress,
-        max_workers=max_workers,
+        max_workers=max_workers, max_resident_patches=max_resident_patches,
     )
     # queue both count types on the device before finalizing either, the
     # same defer/finalize overlap crosscorrelate applies across DD..RR
-    dd = links.count_scalar_pairs(
-        reference, unknown, mode="kn", **kwargs, count_type_info="DD",
-        _defer=True,
-    )
-    dr = (
-        links.count_scalar_pairs(
-            reference, unk_rand, mode="kn", **kwargs, count_type_info="DR",
+    with _measurement_cache(max_resident_patches) as tile_cache:
+        kwargs["_tile_cache"] = tile_cache
+        dd = links.count_scalar_pairs(
+            reference, unknown, mode="kn", **kwargs, count_type_info="DD",
             _defer=True,
         )
-        if count_dr
-        else None
-    )
-    dd = dd()  # finalize in queue order: the DR counts still run
-    dr = (
-        dr()
-        if dr is not None
-        else [compute_scalar_normalisation(reference, config)] * len(dd)
-    )
+        dr = (
+            links.count_scalar_pairs(
+                reference, unk_rand, mode="kn", **kwargs,
+                count_type_info="DR", _defer=True,
+            )
+            if count_dr
+            else None
+        )
+        dd = dd()  # finalize in queue order: the DR counts still run
+        dr = (
+            dr()
+            if dr is not None
+            else [compute_scalar_normalisation(reference, config)] * len(dd)
+        )
     return [ScalarCorrFunc(a, b) for a, b in zip(dd, dr)]

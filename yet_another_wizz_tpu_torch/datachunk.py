@@ -25,6 +25,7 @@ __all__ = [
     "ATTR_ORDER",
     "DataChunk",
     "DataChunkInfo",
+    "HandlesDataChunk",
     "PATCH_ID_DTYPE",
     "check_patch_ids",
 ]
@@ -98,6 +99,33 @@ class DataChunkInfo:
             has_patch_ids=self.has_patch_ids,
             has_kappa=self.has_kappa,
         )
+
+
+class HandlesDataChunk:
+    """Mixin for objects that carry a :class:`DataChunkInfo` description."""
+
+    _chunk_info: DataChunkInfo
+
+    @property
+    def attrs(self) -> DataChunkInfo:
+        """Description of the optional attributes this object provides."""
+        return self._chunk_info
+
+    @property
+    def has_weights(self) -> bool:
+        return self._chunk_info.has_weights
+
+    @property
+    def has_redshifts(self) -> bool:
+        return self._chunk_info.has_redshifts
+
+    @property
+    def has_kappa(self) -> bool:
+        return self._chunk_info.has_kappa
+
+    @property
+    def has_patch_ids(self) -> bool:
+        return self._chunk_info.has_patch_ids
 
 
 class DataChunk:

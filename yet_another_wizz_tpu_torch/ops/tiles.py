@@ -18,8 +18,9 @@ arithmetic instead, so a catalog becomes a :class:`TileSet`:
   tile-pair lists.
 
 Weights of padding points are zero, so they never contribute to counts.
-Lanes cross to the device as these float32 arrays, 32 B per point; the JAX
-package's fixed-point link encoding is not ported. From the lanes,
+Lanes cross to the device as these float32 arrays, 32 B per point, copied
+from pinned host memory (:meth:`TileSet.device_data`); the JAX package's
+fixed-point link encoding is not ported. From the lanes,
 :func:`chunk_caps` derives a bounding sphere and bin range per run of 32
 consecutive points, from which the cumulative CUDA kernel skips the column
 chunks that none of a warp's rows can reach.
@@ -280,23 +281,52 @@ class TileSet:
     on the column tile set + linkage inputs). Lives on the ROW tile set so
     the memo is dropped with its catalog's tile cache."""
 
-    def device_data(self, device: torch.device | str) -> torch.Tensor:
+    def device_data(
+        self,
+        device: torch.device | str,
+        *,
+        stream: torch.cuda.Stream | None = None,
+    ) -> torch.Tensor:
         """``lane_data`` as a float32 ``(num_tiles, 8, tile_size)`` tensor
         on ``device``, uploaded once per device and cached: repeated
-        engine calls must not re-transfer the catalog."""
+        engine calls must not re-transfer the catalog.
+
+        To a CUDA device the lanes are copied from pinned host memory
+        without blocking, on ``stream`` (a side stream, e.g. of a prefetch
+        worker) or else on the current stream. A later call on another
+        stream makes that stream wait for the copy and marks the lanes as
+        used by it (``record_stream``), so their memory is not reused while
+        kernels queued there still read them, whenever the tile set drops
+        them."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        lanes = self._device_lanes.get(device)
-        if lanes is None:
-            # double-checked under the lock: concurrent callers must not
-            # upload the same catalog twice
-            with self._upload_lock:
-                lanes = self._device_lanes.get(device)
-                if lanes is None:
-                    lanes = torch.from_numpy(self.lane_data).to(device)
-                    self._device_lanes[device] = lanes
-        return lanes
+        with self._upload_lock:
+            upload = self._device_lanes.get(device)
+            if upload is None:
+                upload = _Upload(self.lane_data, device, stream)
+                self._device_lanes[device] = upload
+            if stream is None:
+                upload.consume_on_current_stream()
+        return upload.lanes
+
+    def device_upload(self, device: torch.device | str):
+        """The CUDA events recorded on the copy's stream just before and
+        just after the lanes were copied to ``device`` (one tuple object per
+        upload), or None when they are not on it or it is not a CUDA
+        device."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        upload = self._device_lanes.get(device)
+        return None if upload is None else upload.events
+
+    def drop_device_data(self) -> None:
+        """Release the uploaded lanes (and with them the chunk caps the
+        kernels derived from them) on every device; they are uploaded again
+        on the next :meth:`device_data`."""
+        with self._upload_lock:
+            self._device_lanes.clear()
 
     @property
     def num_tiles(self) -> int:
@@ -326,6 +356,41 @@ class TileSet:
         return np.broadcast_to(
             self.sum_weights, (num_bins, self.num_patches)
         ).copy()
+
+
+class _Upload:
+    """The lanes of a tile set on one device; on a CUDA device also the
+    stream their copy was queued on, CUDA events before and after the copy,
+    and the streams that have waited for it."""
+
+    __slots__ = ("lanes", "stream", "events", "consumers")
+
+    def __init__(self, lane_data: NDArray, device: torch.device, stream) -> None:
+        self.stream = self.events = None
+        self.consumers: set = set()
+        if device.type != "cuda":
+            self.lanes = torch.from_numpy(lane_data).to(device)
+            return
+        host = torch.from_numpy(lane_data).pin_memory()
+        self.stream = stream or torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.stream):
+            start.record(self.stream)
+            # the pinned block stays reserved until the copy is done
+            self.lanes = host.to(device, non_blocking=True)
+            done.record(self.stream)
+        self.events = (start, done)
+        self.consumers.add(self.stream)
+
+    def consume_on_current_stream(self) -> None:
+        if self.stream is None:
+            return
+        current = torch.cuda.current_stream(self.lanes.device)
+        if current not in self.consumers:
+            current.wait_event(self.events[1])
+            self.lanes.record_stream(current)
+            self.consumers.add(current)
 
 
 def build_tile_set(
