@@ -43,7 +43,19 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   float64 oracle on 48 slots, the lazy and store-hit runs bitwise against
   the first; it logs the phases of each run, the engine's kernel time, the
   side-stream upload time of a run without the tile store, and the cache
-  hits.
+  hits. It then runs the survey under a resident budget below its lanes
+  (evictions, disk spills and reloads; bitwise the first run) and with both
+  budgets 0, and ``HistData.from_catalog`` on the unknown sample from
+  ``Catalog`` and ``LazyCatalog`` (bitwise equal, each bin the sample's
+  weight sum);
+- audit: the main path with ``audit=True`` (the flag pass K2.1 as torch
+  ops on the card, the flagged slots recounted in float64): flagged slots
+  equal the oracle, the others the unaudited counts bit for bit, and every
+  slot lies within 1e-6 of the oracle; the engineered on-edge pair of the
+  JAX package's audit tests (``tests/torch_audit_cases.py``), which K1.1
+  counts on the wrong side of the edge and the audit repairs; and blocked
+  ``autocorrelate(audit=True)`` against the in-memory audited run, on the
+  benchmark's reference and randoms halved.
 
 Beside the variants' checks it logs, for each variant of kernel A, the
 share of candidate pairs in reach of an edge, the share of chunk blocks
@@ -152,6 +164,21 @@ SURVEY_PHASES = (
     "drain_scatter", "upload", "upload_bytes", "store_hits", "store_misses",
     "num_block_pairs",
 )
+AUDIT_RTOL = 1e-6
+"""Audited counts against the float64 oracle, per slot and element: with
+the audit, no pair within float32 resolution of an edge is left in the
+wrong bin, so the per-slot relative error is the float32 sums' alone."""
+AUDIT_EXACT = 1e-12
+"""A flagged slot's audited counts against the oracle (the same float64
+recount of the same points)."""
+AUDIT_CUT = 2
+"""The blocked audit's catalogs: the benchmark's reference and randoms
+divided by this factor (100k and 500k points), to keep its two float64
+recounts short while slots are still flagged."""
+AUDIT_RESIDENT = 16
+SURVEY_BUDGET = 64 << 20
+"""The binding resident budget of the survey: below the 225.6 MB of lanes
+the default budget holds resident."""
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
 
@@ -751,15 +778,17 @@ def oracle_counts(links, catalogs, count, slots=None):
     return engine, oracle, pairs, seconds
 
 
-def oracle_check(catalogs, config, wsp) -> None:
+def oracle_check(catalogs, config, wsp) -> dict:
     """DD and RD against the float64 scipy oracle: the per-slot cumulative
     counts of the engine, the main path's per-patch-pair counts, and the
-    per-bin totals (the JAX package's benchmark metric)."""
+    per-bin totals (the JAX package's benchmark metric). Returns the
+    oracle's cumulative counts and the pair list of each, by name."""
     import numpy as np
 
     from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
 
     links = PatchLinkage.from_catalogs(config, *catalogs)
+    oracles = {}
     for name, count, counts in (
         ("DD", "cross DD", wsp.dd), ("RD", "cross RD", wsp.rd)
     ):
@@ -789,6 +818,8 @@ def oracle_check(catalogs, config, wsp) -> None:
         check(slot_err <= RTOL, f"{name} per-slot counts off the oracle")
         check(path_err <= RTOL, f"{name} main-path counts off the oracle")
         check(total_rel <= RTOL, f"{name} per-bin totals off the oracle")
+        oracles[name] = (oracle, pairs)
+    return oracles
 
 
 def main_path_counts(corr, pairs, auto: bool):
@@ -885,6 +916,191 @@ def scalar_oracle_check(catalogs, config, kn, kk) -> None:
             f"max|err|/max|oracle| {err:.3e}, negative counts "
             f"{int(np.sum(expected < 0))}")
         check(err <= SCALAR_ORACLE_RTOL, f"scalar {name} off the oracle")
+
+
+# -- exactness audit ------------------------------------------------------------
+
+
+def slot_relative_error(actual, desired) -> float:
+    """Largest ``|actual - desired| / |desired|`` over the elements where
+    ``desired`` is nonzero (0 where there is none)."""
+    import numpy as np
+
+    nonzero = desired != 0
+    if not nonzero.any():
+        return 0.0
+    return float((np.abs(actual - desired)[nonzero] / np.abs(desired[nonzero])).max())
+
+
+def flag_pass_bound(stats, num_edges: int, tile_size: int) -> tuple[float, str]:
+    """The least milliseconds of one flag pass (K2.1): every candidate pair
+    of its list at 16 + 3E float32 operations (the compensated chord, the
+    validity test, and a subtraction, absolute value and compare per edge),
+    against its bytes (the tile pairs' lanes read once, one flag written)."""
+    candidates = stats["tile_pairs"] * tile_size**2
+    lanes = 2 * stats["tile_pairs"] * 8 * tile_size * 4
+    return bound(candidates * (16 + 3 * num_edges), lanes + stats["tile_pairs"])
+
+
+def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
+    """The main path with ``audit=True``: each flagged slot equals the
+    float64 oracle, each other slot the unaudited count bit for bit, and
+    every slot's counts lie within :data:`AUDIT_RTOL` of the oracle."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.ops import paircount
+    from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE
+
+    reference, unknown, randoms = catalogs
+    workers = len(os.sched_getaffinity(0))
+
+    def audited():
+        return crosscorrelate(
+            config, reference, unknown, ref_rand=randoms, device="cuda",
+            audit=True, max_workers=workers,
+        )
+
+    paircount.reset_audit_stats()
+    (corr,), _ = run_path(
+        "audit (crosscorrelate, audit=True)", audited,
+        {"paircount_partials": 2, "paircount_segment_sum": 2}, launches_total,
+    )
+    check(len(paircount.AUDIT_STATS) == 2, "audit: not one audit per count")
+    first = list(paircount.AUDIT_STATS)
+    paircount.reset_audit_stats()
+    t0 = time.perf_counter()
+    (again,) = audited()
+    warm = time.perf_counter() - t0
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    num_edges = links.edges.chord2_table.shape[1]
+    for (name, stats), rerun in zip(
+        zip(("DD", "RD"), first), paircount.AUDIT_STATS
+    ):
+        oracle, pairs = oracles[name]
+        check(stats["tile_pairs"] == pairs.num_pairs, f"audit {name}: another list")
+        flagged = stats["flagged_slots"]
+        check(np.array_equal(rerun["flagged_slots"], flagged),
+              f"audit {name}: the second run flagged other slots")
+        unflagged = np.setdiff1d(np.arange(pairs.num_slots), flagged)
+        ours = main_path_counts(getattr(corr, name.lower()), pairs, False)
+        plain = main_path_counts(getattr(wsp, name.lower()), pairs, False)
+        expected = links.edges.counts_to_scales(oracle)[0]
+        flagged_err = slot_relative_error(ours[flagged], expected[flagged])
+        slot_err = slot_relative_error(ours, expected)
+        plain_err = slot_relative_error(plain, expected)
+        bound_ms, bound_by = flag_pass_bound(stats, num_edges, DEFAULT_TILE_SIZE)
+        log(f"[{card}] audit {name}: {len(flagged)} of {pairs.num_slots} slots "
+            f"flagged ({stats['tile_pairs']} tile pairs); flag pass (K2.1, torch "
+            f"ops) {stats['flag_ms']:.1f} ms on the card ({rerun['flag_ms']:.1f} "
+            f"ms warm), bound {bound_ms:.3f} ms ({bound_by}); float64 recount "
+            f"{stats['recount_seconds']:.2f} s ({rerun['recount_seconds']:.2f} s "
+            f"warm) on {stats['recount_workers']} threads; flagged slots vs "
+            f"oracle max rel {flagged_err:.3e}; unflagged slots bitwise the "
+            f"unaudited counts; per-slot max rel vs oracle {slot_err:.3e} "
+            f"(unaudited {plain_err:.3e})")
+        check(flagged_err <= AUDIT_EXACT,
+              f"audit {name}: a flagged slot is not the oracle's")
+        check(np.array_equal(ours[unflagged], plain[unflagged]),
+              f"audit {name}: an unflagged slot differs from the unaudited count")
+        check(slot_err <= AUDIT_RTOL, f"audit {name}: per-slot counts off the oracle")
+    check(same_counts(again, corr), "audit: the warm run differs from the first")
+    log(f"[{card}] audit (crosscorrelate + audit, DD + RD): warm {warm:.2f} s")
+
+
+def audit_flip(card, launches_total) -> None:
+    """The engineered on-edge pair (``tests/torch_audit_cases.py``, the JAX
+    package's ``TestBoundaryAudit``) on the card: K1.1 puts the whole 1e4
+    pair weight on the wrong side of the edge, the audit repairs it."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.ops.cpu_oracle import count_pairs_oracle
+    from yet_another_wizz_tpu_torch.ops.paircount import count_pairs_tiles
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_audit_cases as cases
+
+    case = cases.on_edge_case(np.random.default_rng(12345), 1.0)
+    tiles1, tiles2, pairs = cases.port_inputs(case)
+    expected = count_pairs_oracle(*cases.oracle_inputs(case, pairs))
+    (raw, fixed), _ = run_path(
+        "audit flip (engineered on-edge pair)",
+        lambda: tuple(
+            count_pairs_tiles(
+                tiles1, tiles2, pairs, case["chord2"], backend="cuda",
+                device="cuda", edges_radian=case["edges"], audit=audit,
+            )
+            for audit in (False, True)
+        ),
+        {"paircount_partials": 2, "paircount_segment_sum": 2}, launches_total,
+    )
+    raw_err = np.abs(raw - expected).max()
+    fixed_err = np.abs(fixed - expected).max()
+    log(f"[{card}] audit flip: unaudited K1.1 off the oracle by {raw_err:.6f} "
+        f"(the pair weight is 1e4), audited by {fixed_err:.3e}")
+    check(raw_err >= 0.999e4, "audit flip: the engineered pair did not flip")
+    check(fixed_err <= 1e-3, "audit flip: the audit did not repair the flip")
+
+
+def audit_blocked(card, config, launches_total) -> None:
+    """Blocked ``autocorrelate(audit=True)`` against the in-memory audited
+    run, on the benchmark's catalogs cut by :data:`AUDIT_CUT`."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.correlation.measurements import autocorrelate
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    def flagged() -> int:
+        return sum(len(stats["flagged_slots"]) for stats in paircount.AUDIT_STATS)
+
+    mock = generate_mock_data(
+        num_reference=NUM_REFERENCE // AUDIT_CUT, num_unknown=1,
+        num_randoms=NUM_RANDOMS // AUDIT_CUT, seed=SEED,
+    )
+    data = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=NUM_PATCHES, device="cuda"
+    )
+    random = Catalog.from_arrays(
+        **mock["randoms"], degrees=False, patch_centers=data.get_centers(),
+        device="cuda",
+    )
+    run = dict(device="cuda", audit=True, max_workers=len(os.sched_getaffinity(0)))
+    paircount.reset_audit_stats()
+    t0 = time.perf_counter()
+    (memory,) = autocorrelate(config, data, random, **run)
+    t_memory = time.perf_counter() - t0
+    flagged_memory = flagged()
+    paircount.reset_audit_stats()
+    t0 = time.perf_counter()
+    (blocked,), _ = run_path(
+        "audit blocked (autocorrelate, audit=True, max_resident_patches="
+        f"{AUDIT_RESIDENT})",
+        lambda: autocorrelate(
+            config, data, random, max_resident_patches=AUDIT_RESIDENT, **run
+        ),
+        {"paircount_partials_binned": 3, "paircount_segment_sum": 3},
+        launches_total,
+    )
+    t_blocked = time.perf_counter() - t0
+    errs = []
+    for name in ("dd", "dr", "rr"):
+        ours = getattr(blocked, name).counts.counts
+        expected = getattr(memory, name).counts.counts
+        errs.append(np.abs(ours - expected).max() / np.abs(expected).max())
+    log(f"[{card}] audit blocked ({NUM_REFERENCE // AUDIT_CUT} + "
+        f"{NUM_RANDOMS // AUDIT_CUT} points, {NUM_PATCHES} patches): in memory "
+        f"{t_memory:.2f} s ({flagged_memory} slots recounted over DD, DR, RR), "
+        f"blocked {t_blocked:.2f} s ({flagged()} block-pair slots recounted); "
+        "blocked vs in-memory max|err|/max DD, DR, RR "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    check(flagged_memory > 0, "audit blocked: no slot was flagged")
+    check(max(errs) <= RTOL, "audit blocked: off the in-memory audited counts")
 
 
 # -- paths ----------------------------------------------------------------------
@@ -1048,10 +1264,11 @@ def write_survey_caches(root: str) -> None:
     )
 
 
-def survey_run(config, catalogs):
+def survey_run(config, catalogs, **budgets):
     """One survey measurement (blocked ``crosscorrelate`` DD + RD and the
-    jackknife n(z)) in a tile cache of its own: ``(w_sp, n(z), stats)``,
-    with the run's phase totals and cache hits in ``stats``."""
+    jackknife n(z)) in a tile cache of its own, with the ``budgets`` of
+    ``measurement_tile_cache``: ``(w_sp, n(z), stats)``, with the run's
+    phase totals and the cache's statistics in ``stats``."""
     import torch
 
     from yet_another_wizz_tpu_torch.correlation import blocked
@@ -1059,7 +1276,7 @@ def survey_run(config, catalogs):
     from yet_another_wizz_tpu_torch.redshifts import RedshiftData
 
     blocked.reset_phase_totals()
-    with blocked.measurement_tile_cache() as cache:
+    with blocked.measurement_tile_cache(**budgets) as cache:
         (wsp,) = crosscorrelate(
             config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
             max_resident_patches=SURVEY_RESIDENT, device="cuda",
@@ -1068,7 +1285,8 @@ def survey_run(config, catalogs):
     torch.cuda.synchronize()
     stats = {key: blocked.PHASE_TOTALS.get(key, 0) for key in SURVEY_PHASES}
     stats["candidate_pairs"] = blocked.PHASE_TOTALS["candidate_pairs"]
-    stats["cache_hits"], stats["cache_misses"] = cache.hits, cache.misses
+    for key in ("hits", "misses", "evictions", "spills", "spill_loads"):
+        stats[f"cache_{key}"] = getattr(cache, key)
     return wsp, nz, stats
 
 
@@ -1134,6 +1352,81 @@ def survey_child(kind: str, root: str, out: str) -> None:
         max_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         open_s=t_open, total_s=seconds, stats=stats,
     )))
+
+
+def survey_budgets(card, config, catalogs, first) -> None:
+    """The survey under a resident budget below its lanes (evictions, disk
+    spills and reloads), and with both budgets 0 (every block loaded from
+    the tile store and uploaded each sweep): bitwise the first run."""
+    import torch
+
+    log(f"-- survey: binding resident budget ({SURVEY_BUDGET >> 20} MiB), "
+        "each run in a tile cache of its own")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for run in range(SURVEY_WARM_RUNS):
+        t0 = time.perf_counter()
+        wsp, _, stats = survey_run(config, catalogs, resident_tile_bytes=SURVEY_BUDGET)
+        times.append(time.perf_counter() - t0)
+        log(f"[{card}] survey budget {SURVEY_BUDGET >> 20} MiB run {run}: "
+            f"{times[-1]:.3f} s; {format_stats(stats)}")
+        check(same_counts(wsp, first), "survey: a binding-budget run differs")
+        binding = ("evictions", "spills", "spill_loads")
+        check(min(stats[f"cache_{key}"] for key in binding) > 0,
+              "survey: the budget did not bind (no eviction, spill or reload)")
+    log(f"[{card}] survey budget {SURVEY_BUDGET >> 20} MiB: warm "
+        f"{statistics.median(times):.3f} s (median of {SURVEY_WARM_RUNS}) "
+        f"[{min(times):.3f}, {max(times):.3f}], bitwise the first run; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wsp, _, stats = survey_run(
+        config, catalogs, tile_cache_bytes=0, resident_tile_bytes=0
+    )
+    seconds = time.perf_counter() - t0
+    check(same_counts(wsp, first), "survey: the run without tile caches differs")
+    check(stats["cache_hits"] == 0, "survey: a cache without budget was hit")
+    log(f"[{card}] survey with both budgets 0 (every block loaded and uploaded "
+        f"each sweep): {seconds:.3f} s, bitwise the first run; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+        f"{format_stats(stats)}")
+
+
+def survey_hist(card, config, catalogs, root) -> None:
+    """``HistData.from_catalog`` on the survey's unknown sample, from the
+    ``Catalog`` and from a ``LazyCatalog`` in blocks: bitwise equal, and
+    each bin the sample's weight sum in it."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import LazyCatalog
+    from yet_another_wizz_tpu_torch.redshifts import HistData
+
+    unknown = catalogs[1]
+    t0 = time.perf_counter()
+    memory = HistData.from_catalog(unknown, config)
+    t_memory = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lazy = HistData.from_catalog(
+        LazyCatalog(os.path.join(root, "unknown")), config,
+        max_resident_patches=SURVEY_RESIDENT,
+    )
+    t_lazy = time.perf_counter() - t0
+    check(np.array_equal(lazy.data, memory.data)
+          and np.array_equal(lazy.samples, memory.samples),
+          "hist: LazyCatalog and Catalog differ")
+    z = unknown.redshifts
+    w = unknown.weights if unknown.weights is not None else np.ones(len(z))
+    bins = config.binning.binning.digitize(z) - 1
+    expected = np.array([w[bins == b].sum() for b in range(NUM_BINS)])
+    err = slot_relative_error(memory.data, expected)
+    log(f"[{card}] hist (HistData.from_catalog, {len(z)} unknown rows, "
+        f"{unknown.num_patches} patches): Catalog {t_memory:.3f} s, LazyCatalog "
+        f"in blocks of {SURVEY_RESIDENT} patches {t_lazy:.3f} s, bitwise equal; "
+        f"per-bin weight sums max rel {err:.3e}")
+    check(memory.data.shape == (NUM_BINS,) and bool(np.all(np.isfinite(memory.error))),
+          "hist: wrong shape or non-finite errors")
+    check(err <= 1e-12, "hist: a bin is not the sample's weight sum in it")
 
 
 def survey_path(card, config, launches_total) -> None:
@@ -1276,6 +1569,9 @@ def survey_checks(card, config, launches_total, root) -> None:
         f"{stats['upload_bytes'] / 1e6:.1f} MB in {stats['upload'] * 1e3:.2f} ms "
         f"on the card ({rate / 1e9:.2f} GB/s from pinned memory) against "
         f"{engine_ms:.2f} ms of engine kernels; {format_stats(stats)}")
+
+    survey_budgets(card, config, catalogs, first)
+    survey_hist(card, config, catalogs, root)
 
     log("-- survey: child processes on the same caches (tile store warm)")
     for kind in ("catalog", "lazy"):
@@ -1498,10 +1794,16 @@ def main() -> None:
           "many scales: direct off the cumulative counts")
 
     log("-- float64 oracle")
-    oracle_check(catalogs, config, wsp)
+    oracles = oracle_check(catalogs, config, wsp)
     wss_oracle_check(catalogs, config, wss)
     direct_oracle_check(catalogs, config_b, wsp_b, wss_b)
     scalar_oracle_check(catalogs, config, kn, kk)
+
+    log("-- audit path (crosscorrelate, audit=True)")
+    audit_checks(card, catalogs, config, wsp, oracles, launches_total)
+    del oracles
+    audit_flip(card, launches_total)
+    audit_blocked(card, config, launches_total)
 
     log("-- timing")
     paths = {

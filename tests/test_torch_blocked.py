@@ -255,6 +255,29 @@ def test_spill_only_equals_default(catalogs, config):
     assert_corrfunc_equal(spilled, default, ["dd", "rd"])
 
 
+def test_binding_resident_budget_equals_default(catalogs, config):
+    """Under a resident budget of three blocks the cache evicts stale
+    blocks across the count types, spills the rest to disk and reads them
+    back; with both budgets 0 every block is rebuilt each sweep. The counts
+    equal the default budget's bit for bit."""
+    default = cross(config, catalogs, max_resident_patches=4)
+    block = blocked._build_block_tiles(catalogs[1], None, "n", 0, 2, 512)
+    budget = 3 * blocked._ColumnTileCache._device_nbytes(block)
+    with blocked.measurement_tile_cache(resident_tile_bytes=budget) as cache:
+        bound = cross(config, catalogs, max_resident_patches=4)
+        assert cache.evictions > 0
+        assert cache.spills > 0 and cache.spill_loads > 0
+        assert 0 < cache._resident_used <= budget
+    assert_corrfunc_equal(bound, default, ["dd", "rd"])
+    with blocked.measurement_tile_cache(
+        tile_cache_bytes=0, resident_tile_bytes=0
+    ) as cache:
+        rebuilt = cross(config, catalogs, max_resident_patches=4)
+        assert cache.hits == 0 and cache.spills == cache.evictions == 0
+        assert not cache._resident and not cache._paths
+    assert_corrfunc_equal(rebuilt, default, ["dd", "rd"])
+
+
 def test_prefetch_depth_and_phase_totals(catalogs, config, cross_in_memory, monkeypatch):
     blocked.reset_phase_totals()
     monkeypatch.setenv("YAWT_PREFETCH_BLOCKS", "3")
@@ -354,16 +377,25 @@ def test_eviction_drops_device_lanes(catalogs, config):
 
 
 def test_audit_and_mesh_still_raise(catalogs, config):
-    for unsupported in (dict(audit=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            cross(config, catalogs, max_resident_patches=4, **unsupported)
+    """``mesh`` still raises; the audit runs blocked and gives the blocked
+    counts of the in-memory audited measurement."""
+    with pytest.raises(NotImplementedError):
+        cross(config, catalogs, max_resident_patches=4, mesh=object())
     links = PatchLinkage.from_catalogs(config, *catalogs[:2])
-    with pytest.raises(NotImplementedError, match="audit"):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         blocked.count_pairs_blocked(
             links.edges, links.linkage, catalogs[0], catalogs[1],
             config.binning.binning, auto=False, binned2=False, device="cpu",
-            audit=True,
+            audit=True, data_sharding="ring",
         )
+    audited = blocked.count_pairs_blocked(
+        links.edges, links.linkage, catalogs[0], catalogs[1],
+        config.binning.binning, auto=False, binned2=False, device="cpu",
+        audit=True, max_resident_patches=4,
+    )
+    (memory,) = links.count_pairs(catalogs[0], catalogs[1], device="cpu", audit=True)
+    expected = memory.counts.counts
+    assert_allclose(audited[0], expected, rtol=1e-6, atol=1e-6 * np.abs(expected).max())
 
 
 def test_blocked_path_needs_the_card_by_default(catalogs, config):

@@ -18,6 +18,9 @@ cases (``torch_chunk_cases.py``: a pair exactly on a threshold between
 tangent caps, padding chunks) and on catalog tiles, so a wrongly skipped
 pair shows. The blocked measurement path on the card (lanes uploaded on a
 side stream, counts accumulated on the device) equals the in-memory path.
+The audit's flag pass on the card equals its run on the CPU, and the audit
+repairs the engineered on-edge flip of ``torch_audit_cases.py`` on the
+card, in memory and blocked.
 """
 
 import numpy as np
@@ -449,4 +452,74 @@ def test_blocked_path_matches_in_memory_on_the_card(device, monkeypatch, shape):
         np.testing.assert_allclose(
             getattr(host_mode, name).counts.counts, counts,
             rtol=1e-6, atol=1e-6 * np.abs(expected).max(),
+        )
+
+
+def test_flag_pass_on_the_card_equals_the_cpu(device):
+    from yet_another_wizz_tpu_torch.coordinates import chord_to_angle
+    from yet_another_wizz_tpu_torch.ops.paircount import audit_band, boundary_flags
+
+    tiles1, tiles2, pairs, table = cross_inputs(np.random.default_rng(11))
+    edges = chord_to_angle(np.sqrt(table.astype(np.float64)))
+    # a band wide enough that some tile pairs are flagged and some are not
+    band = torch.from_numpy(audit_band(edges, table, rel_band=2e-3).astype(np.float32))
+    index1 = torch.from_numpy(pairs.tile1[:256].astype(np.int64))
+    index2 = torch.from_numpy(pairs.tile2[:256].astype(np.int64))
+    args = (torch.from_numpy(table), band)
+    on_cpu = boundary_flags(
+        torch.from_numpy(tiles1.lane_data), torch.from_numpy(tiles2.lane_data),
+        index1, index2, *args,
+    )
+    on_card = boundary_flags(
+        tiles1.device_data(device), tiles2.device_data(device),
+        index1.to(device), index2.to(device), *(a.to(device) for a in args),
+    )
+    assert 0 < int(on_cpu.sum()) < len(on_cpu)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_audit_repairs_the_flip_on_the_card(device):
+    import torch_audit_cases as cases
+    from yet_another_wizz_tpu_torch.ops.cpu_oracle import count_pairs_oracle
+
+    case = cases.on_edge_case(np.random.default_rng(12345), 1.0)
+    ts1, ts2, pairs = cases.port_inputs(case)
+    expect = count_pairs_oracle(*cases.oracle_inputs(case, pairs))
+    raw = count_pairs_tiles(ts1, ts2, pairs, case["chord2"], device=device)
+    fixed = count_pairs_tiles(
+        ts1, ts2, pairs, case["chord2"], device=device,
+        edges_radian=case["edges"], audit=True,
+    )
+    assert np.abs(raw - expect).max() > 100.0  # the whole 1e4 pair weight
+    assert np.abs(fixed - expect).max() < 1e-3
+
+
+def test_blocked_audit_matches_in_memory_on_the_card(device):
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import autocorrelate
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+
+    mock = generate_mock_data(
+        num_reference=4000, num_unknown=10, num_randoms=9000, seed=21
+    )
+    reference = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=12, device=device
+    )
+    randoms = Catalog.from_arrays(
+        **mock["randoms"], degrees=False,
+        patch_centers=reference.get_centers(), device=device,
+    )
+    config = Configuration.create(
+        rmin=500, rmax=3000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=4
+    )
+    (memory,) = autocorrelate(config, reference, randoms, device=device, audit=True)
+    (blocked,) = autocorrelate(
+        config, reference, randoms, device=device, audit=True,
+        max_resident_patches=5,
+    )
+    for name in ("dd", "dr", "rr"):
+        np.testing.assert_allclose(
+            getattr(blocked, name).counts.counts,
+            getattr(memory, name).counts.counts, rtol=1e-6, atol=1e-6,
         )

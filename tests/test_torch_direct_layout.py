@@ -102,14 +102,9 @@ def test_layout_holds_each_sub_interval_entries_in_table_order(name):
     assert packed.tobytes() == jax_layout.packed().tobytes()
 
 
-def layout_weight(chord2, rows, weights, direct):
-    """The kernels' weight evaluation in torch: ``log10(theta)`` and the
-    sub-interval index as ``apply_direct_weight`` computes them, the base
-    weight from the per-(bin, sub-interval) table, then the sub-interval's
-    below- and above-entries from the layout, in order."""
-    params = torch.from_numpy(direct.gtable)
-    layout = layout_of(direct)
-    row_params = params[rows]
+def sub_interval(chord2, row_params, direct):
+    """``log10(theta)`` and the sub-interval index of each pair, in the
+    operations of ``apply_direct_weight``."""
     y = 0.25 * chord2
     if direct.spec[3]:
         p = gweight._H_POLY[4] * y
@@ -123,10 +118,20 @@ def layout_weight(chord2, rows, weights, direct):
         s = torch.clamp(0.5 * torch.sqrt(chord2), max=1.0)
         theta = 2.0 * gweight._asin_f32(s)
         log10_theta = torch.log(torch.clamp(theta, min=1e-30)) * gweight._INV_LN10
-    idx = torch.clamp(
+    return torch.clamp(
         torch.floor(log10_theta * row_params[:, 0:1] - row_params[:, 1:2]),
         0.0, float(direct.num_sub - 1),
     ).long()
+
+
+def layout_weight(chord2, rows, weights, direct):
+    """The kernels' weight evaluation in torch: ``log10(theta)`` and the
+    sub-interval index as ``apply_direct_weight`` computes them, the base
+    weight from the per-(bin, sub-interval) table, then the sub-interval's
+    below- and above-entries from the layout, in order."""
+    params = torch.from_numpy(direct.gtable)
+    layout = layout_of(direct)
+    idx = sub_interval(chord2, params[rows], direct)
     sub = torch.arange(direct.num_sub, dtype=torch.float32)
     g_table = torch.exp(params[:, 2:3] + params[:, 3:4] * sub)  # (B, S)
     g = g_table[rows[:, None], idx]
@@ -165,6 +170,32 @@ def pair_inputs(direct, seed):
     return chord2, weights, rows
 
 
+def first_difference(chord2, rows, weights, actual, plain, counted, direct):
+    """The first counted pair whose two weights differ: its squared chord,
+    row bin, the sub-interval index of each side (the layout's, and the
+    plain weight's from a second evaluation of its operations on a copy of
+    the inputs), the column weight and both weights, bit patterns
+    included."""
+    differ = counted & ~(actual == plain)
+    if not differ.any():
+        return "no counted pair differs"
+    r, c = (int(i) for i in torch.nonzero(differ)[0])
+    params = torch.from_numpy(direct.gtable)[rows]
+    idx_layout = sub_interval(chord2, params, direct)[r, c].item()
+    idx_plain = sub_interval(chord2.clone(), params.clone(), direct)[r, c].item()
+
+    def bits(x):
+        return f"{x.item()!r} (0x{x.view(torch.int32).item() & 0xFFFFFFFF:08x})"
+
+    return (
+        f"{int(differ.sum())} counted pairs differ; first at ({r}, {c}): "
+        f"chord2 {bits(chord2[r, c])}, row bin {int(rows[r])}, idx layout "
+        f"{idx_layout}, idx plain {idx_plain}, column weight "
+        f"{bits(weights[r, c])}, layout weight {bits(actual[r, c])}, plain "
+        f"weight {bits(plain[r, c])}"
+    )
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_layout_weight_equals_plain_weight_where_an_edge_reaches(name):
     direct, _ = direct_tables(name)
@@ -184,7 +215,9 @@ def test_layout_weight_equals_plain_weight_where_an_edge_reaches(name):
     reach = torch.from_numpy(direct.chord2_table.max(axis=1))[rows_t][:, None]
     counted = chord2_t <= reach
     assert 0.1 < counted.float().mean() < 0.99
-    assert torch.equal(actual[counted], plain[counted])
+    assert torch.equal(actual[counted], plain[counted]), first_difference(
+        chord2_t, rows_t, weights_t, actual, plain, counted, direct
+    )
     # the exact entry thresholds and edges are among the counted pairs
     on_entry = np.isin(chord2, layout_of(direct).entries[:, 0])
     assert on_entry.any()
@@ -241,6 +274,48 @@ def test_kernel_layout_is_derived_from_its_table_and_cached(name):
     del table
     gc.collect()
     assert key not in cuda_paircount._layouts
+
+
+@pytest.mark.parametrize("cache", ["layouts", "caps"])
+def test_cache_entry_of_a_freed_tensor_is_not_served_to_its_successor(cache):
+    """The layout and chunk-cap caches are keyed by ``id`` of the tensor
+    they were derived from and drop an entry when that tensor is freed. A
+    new tensor of other content often takes the freed ``id``: what the
+    cache returns for it must be derived from the new content."""
+    from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
+
+    direct, _ = direct_tables("config_b")
+    num_edges = direct.chord2_table.shape[1]
+    rng = np.random.default_rng(5)
+    seen = []
+    for round_ in range(12):
+        if cache == "layouts":
+            table = torch.from_numpy(direct.combined_table())
+            # move every entry threshold: another layout per round
+            for col in range(num_edges + 5, table.shape[1], 3):
+                table[:, col] *= 1.0 + 0.01 * round_
+            got = cuda_paircount._device_layout(table, num_edges, direct.spec)
+            expected = gweight.entry_layout(
+                table[:, num_edges:].numpy(), num_sub=direct.num_sub,
+                num_below=direct.num_below, num_above=direct.num_above,
+            ).packed()
+            keys = cuda_paircount._layouts
+        else:
+            table = torch.from_numpy(
+                rng.normal(0.0, 1.0, (3, 8, 64)).astype(np.float32)
+            )
+            got = cuda_paircount._device_caps(table)
+            expected = chunk_caps(table).numpy()
+            keys = cuda_paircount._caps
+        assert_array_equal(got.numpy(), expected)
+        key = id(table)
+        seen.append(key)
+        assert key in keys
+        del table, got
+        gc.collect()
+        assert key not in keys
+    # the test saw a freed id taken by a new tensor
+    assert len(set(seen)) < len(seen)
 
 
 def test_count_pairs_tiles_uploads_one_table_per_content():

@@ -103,11 +103,19 @@ def test_cuda_backend_refuses_cpu_tensors():
         count_pairs_tiles(
             tiles1, tiles2, pairs, table, backend="cuda", device="cpu"
         )
-    for unsupported in (dict(audit=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            count_pairs_tiles(
-                tiles1, tiles2, pairs, table, device="cpu", **unsupported
-            )
+    with pytest.raises(NotImplementedError):
+        count_pairs_tiles(
+            tiles1, tiles2, pairs, table, device="cpu", mesh=object()
+        )
+    # the audit runs on the device asked for, and needs the edges
+    with pytest.raises(ValueError, match="edges_radian"):
+        count_pairs_tiles(tiles1, tiles2, pairs, table, device="cpu", audit=True)
+    edges = np.full((2, 2), 0.1)
+    audited = count_pairs_tiles(
+        tiles1, tiles2, pairs, table, device="cpu", audit=True,
+        edges_radian=edges,
+    )
+    assert audited.shape == (1, 2, 2) and audited.dtype == np.float64
     # direct counting runs; a table without room for its parameter block
     # has no counting edges
     with pytest.raises(ValueError, match="no counting edges"):

@@ -4,8 +4,9 @@ The PyTorch + CUDA counterpart of ``yet_another_wizz_tpu``. It runs the
 cross- and autocorrelation measurements (``crosscorrelate``,
 ``autocorrelate`` with Landy-Szalay, their scalar-field variants
 ``crosscorrelate_scalar`` / ``autocorrelate_scalar``, optionally with
-separation weighting) and jackknife n(z) recovery
-(``RedshiftData.from_corrfuncs``) with the same host pipeline as the JAX
+separation weighting, optionally with the exact-boundary ``audit``),
+jackknife or bootstrap n(z) recovery (``RedshiftData.from_corrfuncs``) and
+redshift histograms (``HistData``) with the same host pipeline as the JAX
 package: patch-resolved catalogs, Morton-sorted
 point tiles, a cap-pruned tile-pair list, and the float64 estimators. The
 pair-count engine is a hand-written CUDA kernel
@@ -46,9 +47,11 @@ __all__ = [
     "CustomCosmology",
     "FLRWCosmology",
     "HealPixRandoms",
+    "HistData",
     "LazyCatalog",
     "Planck15",
     "RedshiftData",
+    "ScalarCorrFunc",
     "__version__",
     "__version_tuple__",
     "autocorrelate",
@@ -57,6 +60,7 @@ __all__ = [
     "crosscorrelate",
     "crosscorrelate_scalar",
     "get_default_cosmology",
+    "load_corrfunc",
     "new_scales",
 ]
 
@@ -75,7 +79,7 @@ def __getattr__(name):
         from yet_another_wizz_tpu_torch.config import Configuration
 
         return Configuration
-    if name in ("CorrData", "CorrFunc"):
+    if name in ("CorrData", "CorrFunc", "ScalarCorrFunc", "load_corrfunc"):
         from yet_another_wizz_tpu_torch import correlation
 
         return getattr(correlation, name)
@@ -86,8 +90,8 @@ def __getattr__(name):
         from yet_another_wizz_tpu_torch.correlation import measurements
 
         return getattr(measurements, name)
-    if name == "RedshiftData":
-        from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+    if name in ("HistData", "RedshiftData"):
+        from yet_another_wizz_tpu_torch import redshifts
 
-        return RedshiftData
+        return getattr(redshifts, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

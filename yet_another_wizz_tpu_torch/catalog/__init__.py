@@ -5,11 +5,12 @@ from yet_another_wizz_tpu_torch.catalog.catalog import (
     InconsistentPatchesError,
 )
 from yet_another_wizz_tpu_torch.catalog.lazy import LazyCatalog
-from yet_another_wizz_tpu_torch.catalog.patch import Metadata
+from yet_another_wizz_tpu_torch.catalog.patch import Metadata, Patch
 
 __all__ = [
     "Catalog",
     "InconsistentPatchesError",
     "LazyCatalog",
     "Metadata",
+    "Patch",
 ]

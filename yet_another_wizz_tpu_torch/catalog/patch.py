@@ -5,9 +5,9 @@ holds ``data.bin`` (one :class:`~yet_another_wizz_tpu_torch.datachunk.
 DataChunkInfo` header byte followed by raw float64 structured rows) and
 ``meta.yml`` (record count, sum of weights, cap center and radius). The
 format is the JAX package's byte for byte (and the reference's), so a cache
-written by either package opens in the other. :class:`PatchWriter` appends
-chunks with buffering. ``yaml`` is imported only where metadata is read or
-written.
+written by either package opens in the other. :class:`Patch` lazily loads
+columns from the cache; :class:`PatchWriter` appends chunks with buffering.
+``yaml`` is imported only where metadata is read or written.
 """
 
 from __future__ import annotations
@@ -18,7 +18,11 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from yet_another_wizz_tpu_torch.coordinates import AngularCoordinates, AngularDistances
-from yet_another_wizz_tpu_torch.datachunk import DataChunk, DataChunkInfo
+from yet_another_wizz_tpu_torch.datachunk import (
+    DataChunk,
+    DataChunkInfo,
+    HandlesDataChunk,
+)
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -26,6 +30,7 @@ if TYPE_CHECKING:
 
 __all__ = [
     "Metadata",
+    "Patch",
     "PatchWriter",
     "read_patch_data",
     "write_patch_data",
@@ -192,3 +197,58 @@ class PatchWriter:
             )
             self._buffer.insert(0, mode_chunk)
         self.flush()
+
+
+class Patch(HandlesDataChunk):
+    """Lazy accessor for one cached patch directory."""
+
+    __slots__ = ("cache_path", "meta", "_chunk_info")
+
+    def __init__(self, cache_path: Path | str, center=None) -> None:
+        self.cache_path = Path(cache_path)
+        with self.data_path.open("rb") as f:
+            self._chunk_info = DataChunkInfo.from_bytes(f.read(1))
+
+        meta_path = self.cache_path / "meta.yml"
+        if meta_path.exists():
+            self.meta = Metadata.from_file(meta_path)
+        else:
+            _, data = read_patch_data(self.data_path)
+            self.meta = Metadata.compute(
+                DataChunk.get_coords(data),
+                weights=DataChunk.getattr(data, "weights"),
+                center=center,
+            )
+            self.meta.to_file(meta_path)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.meta}) @ {self.cache_path}"
+
+    @property
+    def data_path(self) -> Path:
+        return self.cache_path / "data.bin"
+
+    def load_data(self) -> NDArray:
+        """Load the full structured data array from the cache."""
+        _, data = read_patch_data(self.data_path)
+        return data
+
+    @property
+    def coords(self) -> AngularCoordinates:
+        """Coordinates of the patch points."""
+        return DataChunk.get_coords(self.load_data())
+
+    @property
+    def weights(self) -> NDArray | None:
+        """Weights of the patch points (None if absent)."""
+        return DataChunk.getattr(self.load_data(), "weights")
+
+    @property
+    def redshifts(self) -> NDArray | None:
+        """Redshifts of the patch points (None if absent)."""
+        return DataChunk.getattr(self.load_data(), "redshifts")
+
+    @property
+    def kappa(self) -> NDArray | None:
+        """Scalar field values of the patch points (None if absent)."""
+        return DataChunk.getattr(self.load_data(), "kappa")

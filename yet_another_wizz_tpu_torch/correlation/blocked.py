@@ -22,9 +22,11 @@ The engine output has exactly one zeroed row per patch-pair slot: the JAX
 package's ``padded_slots`` contract (``ops/paircount.py:597`` there), with
 its dump row P of the accumulator, has nothing to do here.
 
-Enabled through ``max_resident_patches`` on the measurement functions. The
-exact-boundary ``audit`` and multi-device execution (``mesh``) are not
-ported yet and raise ``NotImplementedError``.
+Enabled through ``max_resident_patches`` on the measurement functions.
+With ``audit`` each block pair's count is audited (the engine's
+``audit_boundary_counts``) and scattered on the host in float64.
+Multi-device execution (``mesh``) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -203,6 +205,11 @@ class _ColumnTileCache:
     ``store_rows=True`` (set by :func:`measurement_tile_cache`) also admits
     ROW blocks: within one count rows are visited once each, but across the
     counts of a measurement the same catalog often returns as the row side.
+
+    Statistics: ``hits`` / ``misses`` of the lookups, ``evictions`` (stale
+    resident entries dropped, with their device lanes, to admit another
+    block), ``spills`` (blocks written to the disk layer) and
+    ``spill_loads`` (blocks read back from it).
     """
 
     def __init__(
@@ -225,6 +232,9 @@ class _ColumnTileCache:
         self.store_rows = store_rows
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
+        self.spills = 0
+        self.spill_loads = 0
         self.generation = 0
         self._gen: dict[object, int] = {}  # last use per entry
         self._active: set[int] = set()  # generations of RUNNING counts
@@ -305,6 +315,8 @@ class _ColumnTileCache:
             if free() >= needed:
                 return
             drop(key)
+            if resident:
+                self.evictions += 1
 
     def _purge_dead(self) -> None:
         """Drop entries whose keyed catalog has been garbage-collected: a
@@ -365,6 +377,8 @@ class _ColumnTileCache:
         self._gen[key] = self.generation
         if count:
             self._count(hit=True)
+        with self._stats_lock:
+            self.spill_loads += 1
         # promote a disk hit into the resident layer when there is room
         with self._mutate_lock:
             if key in self._paths and self._admit_resident(key, tiles):
@@ -426,6 +440,7 @@ class _ColumnTileCache:
         self._paths[key] = (path, size)
         self._used += size
         self._gen[key] = self.generation
+        self.spills += 1
 
 
 def _resolve_resident_bytes(resident_tile_bytes: int | None) -> int:
@@ -564,10 +579,13 @@ def count_pairs_blocked(
     run. With ``cache=`` an externally created cache (see
     :func:`measurement_tile_cache`) is used as-is.
 
-    ``audit`` and ``mesh``/``data_sharding`` are not ported yet (raise
+    ``audit=True`` runs the exact-boundary float64 repair per block pair
+    (:func:`~yet_another_wizz_tpu_torch.ops.paircount.audit_boundary_counts`):
+    each block pair is then counted synchronously with the union edges (no
+    direct mode), and its repaired float64 counts are scattered on the host
+    (no device accumulation, which would round them to float32).
+    ``mesh``/``data_sharding`` are not ported yet (raise
     ``NotImplementedError``)."""
-    if audit:
-        raise NotImplementedError("the boundary audit is not ported yet")
     if mesh not in (None, "single") or data_sharding != "replicated":
         raise NotImplementedError("multi-device execution is not ported yet")
     if backend != "oracle":
@@ -624,7 +642,7 @@ def count_pairs_blocked(
             auto=auto, binned2=binned2, mode=mode, tile_size=tile_size,
             backend=backend, device=device, layout1=layout1, layout2=layout2,
             indicator=indicator, num_patches=num_patches, result=result,
-            cache=cache,
+            cache=cache, audit=audit,
         )
         if own_cache and cache is not None:
             logger.debug(
@@ -698,7 +716,7 @@ def reset_phase_totals() -> None:
 def _blocked_loop(
     edges, linkage, catalog1, catalog2, binning, starts, block,
     *, auto, binned2, mode, tile_size, backend, device, layout1, layout2,
-    indicator, num_patches, result, cache,
+    indicator, num_patches, result, cache, audit=False,
 ) -> None:
     t_entry = time.perf_counter()
     phases = {
@@ -717,9 +735,11 @@ def _blocked_loop(
     on_card = backend != "oracle" and device.type == "cuda"
     # the counts are reduced and scattered on the device into one small
     # accumulator, fetched once per count; YAWT_DEVICE_ACCUMULATE=0 copies
-    # each block pair's counts to the host and scatters them there
+    # each block pair's counts to the host and scatters them there, as does
+    # the audit, whose repaired counts are float64 on the host
     device_accumulate = (
         backend != "oracle"
+        and not audit
         and os.environ.get("YAWT_DEVICE_ACCUMULATE", "1").strip() != "0"
     )
     # per queued block pair: the event after its work on the card (None off
@@ -953,9 +973,9 @@ def _blocked_loop(
     num_block_pairs = 0
     num_candidate_pairs = 0
     # direct separation-weighted counting when available (the oracle
-    # backend requires the union-edge representation); the combined table
-    # is built once, not per block pair
-    direct = edges.direct if backend != "oracle" else None
+    # backend and the audit require the union-edge representation); the
+    # combined table is built once, not per block pair
+    direct = edges.direct if backend != "oracle" and not audit else None
     if direct is not None:
         table, edges_radian, spec, mapper = (
             direct.combined_table(), direct.edges, direct.spec, direct
@@ -995,10 +1015,12 @@ def _blocked_loop(
                 num_candidate_pairs += (
                     int(pairs.num_pairs) * tiles1.tile_size * tiles2.tile_size
                 )
+                # with audit, the block pair's repaired counts come back
+                # synchronously as float64 host arrays
                 cumulative = timed(
                     "queue", count_pairs_tiles, tiles1, tiles2, pairs, table,
                     backend=backend, device=device, edges_radian=edges_radian,
-                    defer=True, direct=spec,
+                    audit=audit, defer=True, direct=spec,
                 )
                 if device_accumulate:
                     timed("queue", queue_scatter, cumulative, mapper, pairs, lo1, lo2)

@@ -23,9 +23,15 @@ blocked`), which also takes a disk-backed
 :class:`~yet_another_wizz_tpu_torch.catalog.lazy.LazyCatalog`; the count
 types of one measurement share one tile cache.
 
-Not ported yet: multi-device execution (``mesh``, ``data_sharding``) and
-the exact-boundary ``audit``. Those parameters raise
-``NotImplementedError`` when given a value other than their default.
+With ``audit=True`` every count passes the exact-boundary audit
+(:func:`~yet_another_wizz_tpu_torch.ops.paircount.audit_boundary_counts`):
+it counts with the union edges (no direct mode), synchronously, and
+recounts in float64 the patch-pair slots that hold a pair within float32
+resolution of an edge.
+
+Not ported yet: multi-device execution (``mesh``, ``data_sharding``).
+Those parameters raise ``NotImplementedError`` when given a value other
+than their default.
 """
 
 from __future__ import annotations
@@ -89,10 +95,8 @@ LINKAGE_SLACK = 1.0 + 1e-9
 angular scale are never pruned."""
 
 
-def _check_supported(audit, mesh, data_sharding) -> None:
+def _check_supported(mesh, data_sharding) -> None:
     """Raise for the execution options this package does not run yet."""
-    if audit:
-        raise NotImplementedError("the boundary audit is not ported yet")
     if mesh not in (None, "single") or data_sharding != "replicated":
         raise NotImplementedError("multi-device execution is not ported yet")
 
@@ -290,12 +294,14 @@ class PatchLinkage:
         post-processing happen at call time.
 
         ``max_workers`` bounds the HOST worker pools this count creates
-        (the float64 ``oracle`` backend processes). ``progress`` shows the
-        blocked path's progress; it has no effect on the in-memory path.
+        (the float64 ``oracle`` backend processes and the threads of the
+        audit's float64 recount). ``progress`` shows the blocked path's
+        progress; it has no effect on the in-memory path. ``audit`` runs the exact-boundary
+        audit (see the module docstring).
         """
         from yet_another_wizz_tpu_torch.utils.misc import thread_limit
 
-        _check_supported(audit, mesh, data_sharding)
+        _check_supported(mesh, data_sharding)
         if count_type_info is not None:
             logger.info("counting %s from patch pairs", count_type_info)
 
@@ -311,7 +317,7 @@ class PatchLinkage:
                     catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
                     backend=backend, device=device,
                     max_resident_patches=max_resident_patches,
-                    progress=progress, tile_cache=_tile_cache,
+                    progress=progress, tile_cache=_tile_cache, audit=audit,
                 )
             result = [
                 NormalisedCounts(per_scale, sum_weights) for per_scale in counts
@@ -321,7 +327,7 @@ class PatchLinkage:
         with thread_limit(max_workers):
             finalize_engine = self._run_engine(
                 catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
-                backend=backend, device=device,
+                backend=backend, device=device, audit=audit,
             )
 
         def finish() -> list[NormalisedCounts]:
@@ -384,7 +390,7 @@ class PatchLinkage:
 
     def _run_blocked(
         self, catalog1, catalog2, *, auto, binned2, mode, backend, device,
-        max_resident_patches, progress=False, tile_cache=None,
+        max_resident_patches, progress=False, tile_cache=None, audit=False,
     ):
         """The device-memory-bounded path: stream patch blocks through the
         engine (:func:`~yet_another_wizz_tpu_torch.correlation.blocked.
@@ -400,7 +406,7 @@ class PatchLinkage:
             self.edges, self.linkage, catalog1, catalog2, binning,
             auto=auto, binned2=binned2, mode=mode,
             max_resident_patches=max_resident_patches, backend=backend,
-            device=device, progress=progress, cache=tile_cache,
+            device=device, progress=progress, cache=tile_cache, audit=audit,
         )
         counts = [
             PatchedCounts(binning, scale_counts, auto=auto)
@@ -496,19 +502,20 @@ class PatchLinkage:
             "fetch_bytes": int(pairs.num_slots) * num_bins * num_edges * 4,
         }
 
-    def engine_table(self, backend: str = "auto"):
+    def engine_table(self, backend: str = "auto", audit: bool = False):
         """``(table, edges_radian, direct_spec, mapper)`` of the engine:
         the direct-mode tables when the edges carry them, except for the
-        ``oracle`` backend, which needs the union-edge cumulative
-        representation (both are the same in float64, see
+        ``oracle`` backend and the ``audit``, which need the union-edge
+        cumulative representation (both are the same in float64, see
         :class:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges`)."""
         direct = self.edges.direct
-        if direct is not None and backend != "oracle":
+        if direct is not None and backend != "oracle" and not audit:
             return direct.combined_table(), direct.edges, direct.spec, direct
         return self.edges.chord2_table, self.edges.edges, None, self.edges
 
     def _run_engine(
-        self, catalog1, catalog2, *, auto, binned2, mode, backend, device
+        self, catalog1, catalog2, *, auto, binned2, mode, backend, device,
+        audit=False,
     ):
         binning = self.config.binning.binning
         num_bins = len(binning)
@@ -522,11 +529,14 @@ class PatchLinkage:
             pairs.num_pairs,
             pairs.num_slots,
         )
-        table, edges_radian, direct_spec, mapper = self.engine_table(backend)
+        table, edges_radian, direct_spec, mapper = self.engine_table(
+            backend, audit
+        )
+        # the audit returns its repaired float64 counts synchronously
         cumulative = count_pairs_tiles(
             tiles1, tiles2, pairs, table,
             backend=backend, device=device, edges_radian=edges_radian,
-            defer=True, direct=direct_spec,
+            audit=audit, defer=True, direct=direct_spec,
         )
         fetch = _copy_to_host(cumulative)
 
@@ -578,12 +588,12 @@ def autocorrelate(
     becomes available. The pair counts run on ``device``, in memory or
     with ``max_resident_patches`` blocked, as in :func:`crosscorrelate`.
     """
-    _check_supported(audit, mesh, data_sharding)
+    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(data, random)
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
-        device=device, max_resident_patches=max_resident_patches,
+        device=device, max_resident_patches=max_resident_patches, audit=audit,
     )
 
     logger.info(
@@ -645,9 +655,11 @@ def crosscorrelate(
     plain PyTorch versions with ``device="cpu"``. With
     ``max_resident_patches`` they stream through the blocked out-of-core
     path (catalogs may then be ``LazyCatalog`` objects), with one tile cache
-    shared by the count types.
+    shared by the count types. ``audit=True`` audits every count against
+    float32 misclassification at the bin edges (see the module docstring);
+    ``max_workers`` bounds the threads of its float64 recount.
     """
-    _check_supported(audit, mesh, data_sharding)
+    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, ref_rand, unk_rand)
     count_dr = unk_rand is not None
@@ -657,7 +669,7 @@ def crosscorrelate(
 
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
-        device=device, max_resident_patches=max_resident_patches,
+        device=device, max_resident_patches=max_resident_patches, audit=audit,
     )
     logger.info(
         "computing cross-correlation from DD%s%s%s",
@@ -733,7 +745,7 @@ def autocorrelate_scalar(
     """Measure the angular autocorrelation amplitude of a scalar (kappa)
     field in bins of redshift, on ``device`` (in memory or with
     ``max_resident_patches`` blocked) as in :func:`autocorrelate`."""
-    _check_supported(audit, mesh, data_sharding)
+    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     logger.info("computing scalar auto-correlation with DD")
     links = PatchLinkage.from_catalogs(config, data)
@@ -741,7 +753,7 @@ def autocorrelate_scalar(
         dd = links.count_scalar_pairs(
             data, mode="kk", backend=backend, device=device,
             progress=progress, max_workers=max_workers,
-            max_resident_patches=max_resident_patches,
+            max_resident_patches=max_resident_patches, audit=audit,
             count_type_info="DD", _tile_cache=tile_cache,
         )
     return [ScalarCorrFunc(counts) for counts in dd]
@@ -773,7 +785,7 @@ def crosscorrelate_scalar(
     Without unknown randoms the counts are normalised by the mean kappa
     over the footprint instead of a DR term (from the in-memory tiles, so
     a ``LazyCatalog`` reference needs ``unk_rand``)."""
-    _check_supported(audit, mesh, data_sharding)
+    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, unk_rand)
     count_dr = unk_rand is not None
@@ -788,6 +800,7 @@ def crosscorrelate_scalar(
     kwargs = dict(
         backend=backend, device=device, progress=progress,
         max_workers=max_workers, max_resident_patches=max_resident_patches,
+        audit=audit,
     )
     # queue both count types on the device before finalizing either, the
     # same defer/finalize overlap crosscorrelate applies across DD..RR

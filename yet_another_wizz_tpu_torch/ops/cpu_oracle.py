@@ -15,7 +15,7 @@ purposes:
 from __future__ import annotations
 
 import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -98,6 +98,8 @@ def count_pairs_oracle(
     patch2: NDArray,
     slot_patches: NDArray,
     edges: NDArray,
+    *,
+    max_workers: int = 1,
 ) -> NDArray:
     """Cumulative weighted pair counts per (patch-pair slot, bin, edge).
 
@@ -112,10 +114,18 @@ def count_pairs_oracle(
     Returns:
         float64 array ``(num_slots, B, E)``: entry (n, b, e) is the sum of
         ``w_i * w_j`` over pairs with chord distance <= chord(edges[b, e]).
+
+    With ``max_workers > 1`` the slots are counted on that many threads
+    (the kd-trees release the interpreter lock); each slot is counted
+    whole by one thread, so the result is the same bits. Threads start
+    at no cost, where a process pool's workers each import the package.
     """
     tasks = _build_tasks(
         xyz1, w1, zbin1, patch1, xyz2, w2, zbin2, patch2, slot_patches, edges
     )
+    if max_workers > 1:
+        with ThreadPoolExecutor(max_workers) as pool:
+            return np.stack(list(pool.map(_slot_counts, tasks)))
     return np.stack([_slot_counts(task) for task in tasks])
 
 

@@ -26,17 +26,25 @@ Execution paths of :func:`count_pairs_tiles`:
   ``scan_scatter_counts``; the CPU tests use it, and the chip smoke run
   holds the kernels against it;
 - ``oracle``: float64 scipy kd-trees on the host, for validation.
+
+With ``audit=True`` the counts pass through :func:`audit_boundary_counts`:
+a flag pass on the device (:func:`boundary_flags`, torch ops in the
+kernels' chord arithmetic) marks every tile pair holding a pair within
+float32 resolution of a threshold of its bin, and the flagged patch-pair
+slots are recounted in float64 by the oracle.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import time
 from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
+from yet_another_wizz_tpu_torch.coordinates import angle_to_chord
 from yet_another_wizz_tpu_torch.ops.gweight import (
     apply_direct_weight,
     counting_width,
@@ -56,11 +64,18 @@ if TYPE_CHECKING:
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "AUDIT_RESIDENT_BYTES",
+    "AUDIT_STATS",
+    "audit_band",
+    "audit_boundary_counts",
+    "boundary_flags",
     "chunk_keep_mask",
     "count_pairs_tiles",
     "count_pairs_torch",
+    "pair_block_boundary",
     "pair_block_counts",
     "partial_counts_torch",
+    "reset_audit_stats",
     "resolve_device",
     "segment_sum_torch",
 ]
@@ -80,6 +95,21 @@ def resolve_device(device: torch.device | str) -> torch.device:
             "PyTorch engine"
         )
     return device
+
+
+def _chord2(rows: torch.Tensor, lanes2: torch.Tensor) -> torch.Tensor:
+    """``(K, T, T)`` float32 squared chords between the rows ``(K, T, 8)``
+    and the column tiles ``(K, 8, T)``: the compensated difference ``(r_hi -
+    c_hi) + (r_lo - c_lo)`` per axis, squared and summed in axis order, each
+    step a separate float32 operation (as in the CUDA kernels, which are
+    built without FMA contraction)."""
+    chord2 = None
+    for dim in range(3):
+        d_hi = rows[:, :, dim, None] - lanes2[:, None, dim, :]
+        d_lo = rows[:, :, 3 + dim, None] - lanes2[:, None, 3 + dim, :]
+        d = d_hi + d_lo
+        chord2 = d * d if chord2 is None else chord2 + d * d
+    return chord2
 
 
 def pair_block_counts(
@@ -119,14 +149,7 @@ def pair_block_counts(
     num_bins = chord2_table.shape[0]
     num_edges = counting_width(chord2_table.shape[1], direct)
     rows = lanes1.transpose(1, 2)  # (K, T, 8)
-
-    # squared chord distance with (hi, lo) compensation, shape (K, T, T)
-    chord2 = None
-    for dim in range(3):
-        d_hi = rows[:, :, dim, None] - lanes2[:, None, dim, :]
-        d_lo = rows[:, :, 3 + dim, None] - lanes2[:, None, 3 + dim, :]
-        d = d_hi + d_lo
-        chord2 = d * d if chord2 is None else chord2 + d * d
+    chord2 = _chord2(rows, lanes2)
 
     # per-row thresholds (and weight parameters): an exact gather by the
     # row's bin id (padding rows carry bin 0 and weight 0)
@@ -280,6 +303,225 @@ def count_pairs_torch(
     return segment_sum_torch(partial, slot, pairs.num_slots)
 
 
+AUDIT_RESIDENT_BYTES = 2 << 30
+"""Combined lane bytes above which the audit's flag pass streams
+host-gathered windows of tile pairs to the device (about
+:data:`AUDIT_WINDOW_BYTES` each) instead of reading both full tile sets
+there (the JAX package's bound)."""
+
+AUDIT_WINDOW_BYTES = 256 << 20
+"""Gathered lane bytes per window of the streaming flag pass."""
+
+AUDIT_CHUNK_SIZE = 64
+"""Tile pairs per batch of the flag pass: a few ``(64, T, T)``
+temporaries, 64 MiB each in float32 at T = 512. The JAX package batches
+16; on the card, larger batches cut the per-operation launch cost of the
+torch ops."""
+
+AUDIT_STATS: list[dict] = []
+"""One record per call of :func:`audit_boundary_counts` in this process
+(diagnostic; cleared by :func:`reset_audit_stats`): ``tile_pairs``,
+``slots``, ``flagged_slots`` (int64 array of the recounted slot indices),
+``flag_seconds`` (host seconds of the flag pass, its copy to the host
+included), ``flag_ms`` (the flag pass on the card from CUDA events, None
+off the card), ``recount_seconds`` (the float64 recount) and
+``recount_workers``."""
+
+
+def reset_audit_stats() -> None:
+    """Clear :data:`AUDIT_STATS`."""
+    AUDIT_STATS.clear()
+
+
+def audit_band(
+    edges_radian: NDArray, chord2_table: NDArray, rel_band: float = 1e-6
+) -> NDArray:
+    """float64 ``(B, E)`` half-width of the band around each threshold in
+    which the float32 engine may classify a pair differently from the
+    float64 oracle: the engine's relative chord error plus the float32
+    rounding of the threshold itself, with a 2x margin.
+
+    The JAX package widens the band further by the fixed-point lane
+    quantisation (``lane_quantisation_scale``); that term is zero for
+    float32 lanes, the only lanes of this package."""
+    t64 = angle_to_chord(np.asarray(edges_radian, dtype=np.float64)) ** 2
+    t32 = np.asarray(chord2_table, dtype=np.float64)
+    return 2.0 * (rel_band * t64 + np.abs(t32 - t64))
+
+
+def pair_block_boundary(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+) -> torch.Tensor:
+    """``(K,)`` bool: does any valid pair of tile pair ``k`` (rows
+    ``lanes1[k]``, columns ``lanes2[k]``, ``(K, 8, T)`` float32) lie within
+    the band of a threshold of its row's bin, ``|chord2 - t| <= band``?
+
+    The JAX package's ``_pair_block_boundary``, batched: the chord is the
+    engine's (:func:`_chord2`); a pair is valid where both weights are
+    nonzero (zero marks padding, negative weights are real data) and, with
+    ``cols_binned``, the bins are equal; each row reads the thresholds and
+    bands of its own bin by an exact gather."""
+    num_bins, num_edges = chord2_table.shape
+    rows = lanes1.transpose(1, 2)  # (K, T, 8)
+    chord2 = _chord2(rows, lanes2)
+    bin_ids = rows[:, :, CHANNEL_ZBIN].long().clamp_(0, num_bins - 1)
+    thresholds = chord2_table[bin_ids]  # (K, T, E)
+    bands = band_table[bin_ids]
+    valid = (rows[:, :, CHANNEL_WEIGHT, None] != 0) & (
+        lanes2[:, None, CHANNEL_WEIGHT, :] != 0
+    )
+    if cols_binned:
+        valid &= rows[:, :, CHANNEL_ZBIN, None] == lanes2[:, None, CHANNEL_ZBIN, :]
+    hit = torch.zeros_like(valid)
+    for e in range(num_edges):
+        hit |= (chord2 - thresholds[:, :, e, None]).abs() <= bands[:, :, e, None]
+    return (hit & valid).flatten(1).any(dim=1)
+
+
+def boundary_flags(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    chunk_size: int = AUDIT_CHUNK_SIZE,
+) -> torch.Tensor:
+    """``(P,)`` bool on the lanes' device: :func:`pair_block_boundary` of
+    every tile pair ``(tile1[k], tile2[k])``, in batches of ``chunk_size``
+    tile pairs (the JAX package's ``_boundary_flags_xla``)."""
+    flags = torch.empty(len(tile1), dtype=torch.bool, device=lanes1.device)
+    for start in range(0, len(tile1), chunk_size):
+        stop = start + chunk_size
+        flags[start:stop] = pair_block_boundary(
+            lanes1[tile1[start:stop]], lanes2[tile2[start:stop]],
+            chord2_table, band_table, cols_binned=cols_binned,
+        )
+    return flags
+
+
+def _flag_pass(tiles1, tiles2, pairs, table, band, device, chunk_size):
+    """The flags of every tile pair of ``pairs``, as numpy bool. Tile sets
+    up to :data:`AUDIT_RESIDENT_BYTES` are read from their uploaded lanes;
+    larger ones stream windows of host-gathered lanes (the JAX package's
+    ``_boundary_flags_gathered``), so the device holds about
+    :data:`AUDIT_WINDOW_BYTES` of lanes at a time."""
+    cols_binned = tiles2.binned
+    if tiles1.lane_data.nbytes + tiles2.lane_data.nbytes <= AUDIT_RESIDENT_BYTES:
+        index1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
+        index2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
+        return boundary_flags(
+            tiles1.device_data(device), tiles2.device_data(device),
+            index1, index2, table, band,
+            cols_binned=cols_binned, chunk_size=chunk_size,
+        ).cpu().numpy()
+    per_pair = tiles1.lane_data[0].nbytes + tiles2.lane_data[0].nbytes
+    window = max(
+        chunk_size, AUDIT_WINDOW_BYTES // per_pair // chunk_size * chunk_size
+    )
+    flags = np.empty(pairs.num_pairs, dtype=bool)
+    for start in range(0, pairs.num_pairs, window):
+        stop = min(start + window, pairs.num_pairs)
+        lanes1 = torch.from_numpy(tiles1.lane_data[pairs.tile1[start:stop]])
+        lanes2 = torch.from_numpy(tiles2.lane_data[pairs.tile2[start:stop]])
+        local = torch.arange(stop - start, device=device)
+        flags[start:stop] = boundary_flags(
+            lanes1.to(device), lanes2.to(device), local, local, table, band,
+            cols_binned=cols_binned, chunk_size=chunk_size,
+        ).cpu().numpy()
+    return flags
+
+
+def audit_boundary_counts(
+    tiles1: TileSet,
+    tiles2: TileSet,
+    pairs: TilePairs,
+    counts: NDArray,
+    chord2_table: NDArray,
+    edges_radian: NDArray,
+    *,
+    device: torch.device | str = "cuda",
+    rel_band: float = 1e-6,
+    chunk_size: int = AUDIT_CHUNK_SIZE,
+) -> tuple[NDArray, int]:
+    """Exact-boundary audit: certify or repair the float32 classification
+    of pairs against the bin edges (the JAX package's
+    ``audit_boundary_counts``).
+
+    The engine compares float32 squared chords with float32 thresholds; a
+    pair whose true separation lies within float32 resolution of an edge
+    can land on the other side than in the float64 reference, moving one
+    pair weight between bins. The flag pass (on ``device``) marks every
+    tile pair holding a valid pair within :func:`audit_band` of a threshold
+    of its row's bin, and the patch-pair slots of the flagged tile pairs
+    are recounted with the float64 oracle from the tile sets' own points.
+
+    ``counts`` are the engine's ``(num_slots, B, E)`` cumulative counts.
+    Returns ``(corrected, num_flagged_slots)``: float64 counts with the
+    flagged slots replaced by the oracle's. With no flagged slot the counts
+    are returned as they are, certified free of misclassification. The
+    recount runs on one thread, or on ``host_thread_count()`` threads (the
+    measurement's ``max_workers``) with each slot counted whole by one of
+    them, so both give the same bits."""
+    from yet_another_wizz_tpu_torch.ops.cpu_oracle import count_pairs_oracle
+    from yet_another_wizz_tpu_torch.utils.misc import host_thread_count
+
+    if pairs.num_pairs == 0:
+        return counts, 0
+    device = resolve_device(device)
+    band = audit_band(edges_radian, chord2_table, rel_band)
+    band_table = torch.from_numpy(band.astype(np.float32)).to(device)
+    table = torch.from_numpy(
+        np.ascontiguousarray(chord2_table, np.float32)
+    ).to(device)
+
+    on_card = device.type == "cuda"
+    if on_card:
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(torch.cuda.current_stream(device))
+    t0 = time.perf_counter()
+    flags = _flag_pass(tiles1, tiles2, pairs, table, band_table, device, chunk_size)
+    flag_ms = None
+    if on_card:
+        stop.record(torch.cuda.current_stream(device))
+        stop.synchronize()
+        flag_ms = start.elapsed_time(stop)
+    t1 = time.perf_counter()
+
+    flagged_slots = np.unique(np.asarray(pairs.slot)[flags])
+    workers = 0
+    if len(flagged_slots):
+        xyz1, w1, z1, p1 = _unpack_tileset(tiles1)
+        xyz2, w2, z2, p2 = _unpack_tileset(tiles2)
+        args = (
+            xyz1, w1, z1, p1, xyz2, w2, z2 if tiles2.binned else None, p2,
+            pairs.slot_patches[flagged_slots],
+            np.asarray(edges_radian, dtype=np.float64),
+        )
+        workers = min(host_thread_count(default=1), len(flagged_slots))
+        oracle = count_pairs_oracle(*args, max_workers=workers)
+        counts = np.array(counts, dtype=np.float64, copy=True)
+        counts[flagged_slots] = oracle
+        logger.info(
+            "boundary audit: %d patch-pair slot(s) recomputed in float64",
+            len(flagged_slots),
+        )
+    AUDIT_STATS.append(dict(
+        tile_pairs=int(pairs.num_pairs), slots=int(pairs.num_slots),
+        flagged_slots=flagged_slots.astype(np.int64), flag_seconds=t1 - t0,
+        flag_ms=flag_ms, recount_seconds=time.perf_counter() - t1,
+        recount_workers=workers,
+    ))
+    return counts, int(len(flagged_slots))
+
+
 def _unpack_tileset(tiles: TileSet):
     """Recover per-point float64 arrays from a tile set (hi + lo restores
     the original coordinates to ~1e-15; padding rows carry zero weight)."""
@@ -354,17 +596,22 @@ def count_pairs_tiles(
     available with ``audit`` or the ``oracle`` backend, which require the
     union-edge cumulative representation (callers fall back to it).
 
-    Not ported yet: ``audit`` (raises ``NotImplementedError``), a ``mesh``
-    other than ``None``/``"single"`` and ``data_sharding`` other than
-    ``"replicated"`` (raise ``NotImplementedError``).
+    With ``audit=True`` (requires ``edges_radian``) the counts pass through
+    :func:`audit_boundary_counts`, which repairs any float32 bin-edge
+    misclassification against the float64 reference; the result is then
+    always the float64 numpy array (``defer`` has no effect).
+
+    Not ported yet: a ``mesh`` other than ``None``/``"single"`` and
+    ``data_sharding`` other than ``"replicated"`` (raise
+    ``NotImplementedError``).
     """
+    if audit and edges_radian is None:
+        raise ValueError("audit=True requires 'edges_radian'")
     if direct is not None and (audit or backend == "oracle"):
         raise ValueError(
             "direct counting requires the cumulative representation for "
             "audit/oracle execution"
         )
-    if audit:
-        raise NotImplementedError("the boundary audit is not ported yet")
     if mesh not in (None, "single") or data_sharding != "replicated":
         raise NotImplementedError("multi-device execution is not ported yet")
     cols_binned = tiles2.binned
@@ -404,6 +651,12 @@ def count_pairs_tiles(
             direct=direct,
         )
 
-    if defer:
+    if defer and not audit:
         return result
-    return result.cpu().numpy().astype(np.float64)
+    counts = result.cpu().numpy().astype(np.float64)
+    if audit:
+        counts, _ = audit_boundary_counts(
+            tiles1, tiles2, pairs, counts, chord2_table, edges_radian,
+            device=device,
+        )
+    return counts
