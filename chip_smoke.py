@@ -48,6 +48,25 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   budgets 0, and ``HistData.from_catalog`` on the unknown sample from
   ``Catalog`` and ``LazyCatalog`` (bitwise equal, each bin the sample's
   weight sum);
+- sharded: on a mesh of four shards (the first four cards, or
+  four entries of ``cuda:0`` on a machine with fewer), the headline
+  ``crosscorrelate`` + n(z) under the ``replicated``, ``columns`` and
+  ``ring`` layouts, ``autocorrelate`` (K1.2) and config B's
+  ``crosscorrelate`` (K1.3) under ``ring``: counts and n(z) against the
+  single-device runs (1e-6, direct 1e-5), two runs of each bitwise equal,
+  K1.x and kernel B launched once per non-empty shard and step, the warm
+  median of 3 beside the single-device one; and the cross-shard sum timed
+  against its byte bound;
+- two processes: the headline catalogs written to caches
+  (``Catalog.to_cache``) and counted here on one process's mesh of four
+  shards in every layout; two children of the script (``--mp-child``),
+  wired by ``YAWT_*`` over gloo on localhost, each on ``cuda:rank`` (or
+  ``cuda:0`` on a one-card machine), open the caches and must reproduce
+  those counts bit for bit on the global mesh of 2 x 2 shards; a child's
+  failure fails the script;
+- survey, sharded: the survey's blocked ``crosscorrelate`` under ``ring``
+  on four shards, twice, against its single-device counts (1e-6) and
+  bitwise against each other;
 - audit: the main path with ``audit=True`` (the flag pass K2.1 as torch
   ops on the card, the flagged slots recounted in float64): flagged slots
   equal the oracle, the others the unaudited counts bit for bit, and every
@@ -65,13 +84,15 @@ RD) and K1.2 (w_ss DD) with unit weights on their full pair lists bit for
 bit against the plain version, and it times kernel B on a list shaped like
 the wide grid's cross RD against ``index_add_``.
 Every path resets the kernels' launch counts before it runs and checks
-after it that each variant of the path launched. The counts are checked
+after it that each variant of the path launched. The single-device phases
+pin the automatic device pool to one card (``YAWT_NUM_DEVICES=1``). The counts are checked
 against the float64 scipy oracle, and each path is timed warm. Every
 phase raises on failure, so the exit code is non-zero; the last line of
 standard output is the JSON result ``{"ok": true, "device": {...}}``.
 Without a CUDA card it exits non-zero before printing a result.
 ``python3 chip_smoke.py --survey-child KIND ROOT OUT`` is the survey path's
-child process (``KIND`` ``catalog`` or ``lazy``); it is not run by hand.
+child process (``KIND`` ``catalog`` or ``lazy``) and ``--mp-child ROOT``
+a process of the two-process phase; neither is run by hand.
 """
 
 from __future__ import annotations
@@ -179,6 +200,15 @@ AUDIT_RESIDENT = 16
 SURVEY_BUDGET = 64 << 20
 """The binding resident budget of the survey: below the 225.6 MB of lanes
 the default budget holds resident."""
+SHARDS = 4
+"""Shards of the sharded phases: the first four cards, or four entries of
+``cuda:0`` on a machine with fewer."""
+LAYOUTS = ("replicated", "columns", "ring")
+SHARDED_WARM_RUNS = 3
+MP_PROCESSES = 2
+MP_TIMEOUT = 300
+"""Seconds the two-process phase waits for its children."""
+CATALOG_NAMES = ("reference", "unknown", "randoms")
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
 
@@ -1178,6 +1208,339 @@ def engine_times(card, label, links, catalogs, counts) -> float:
     return total
 
 
+# -- sharded and multi-process phases -------------------------------------------
+
+
+def sharded_mesh():
+    """The mesh of the sharded phases (see :data:`SHARDS`)."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.parallel import Mesh
+
+    if torch.cuda.device_count() >= SHARDS:
+        return Mesh([f"cuda:{i}" for i in range(SHARDS)])
+    return Mesh(["cuda:0"] * SHARDS)
+
+
+def plan_steps(links, catalogs, counts, layout, num_shards, shards=None) -> int:
+    """Non-empty (shard, step) sub-lists of the counts' shard plans over
+    ``shards`` (default all): kernel A and kernel B launch once for each."""
+    from yet_another_wizz_tpu_torch.parallel import sharded
+
+    steps = 0
+    for count in counts:
+        tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+        plan = sharded._shard_plan(pairs, tiles1, tiles2, num_shards, layout)
+        steps += sum(len(plan[d]) for d in (shards or range(num_shards)))
+    return steps
+
+
+def relative_error(actual, desired) -> float:
+    import numpy as np
+
+    return float(np.abs(actual - desired).max() / np.abs(desired).max())
+
+
+def corr_error(corr, desired, names) -> float:
+    return max(
+        relative_error(getattr(corr, name).counts.counts,
+                       getattr(desired, name).counts.counts)
+        for name in names
+    )
+
+
+def sharded_case(card, label, run, single, names, launches_total, *, links,
+                 catalogs, counts, layout, mesh, variant, rtol=RTOL) -> None:
+    """One sharded measurement: launches once per non-empty step, counts and
+    n(z) of every scale against the single-device run, two runs bitwise
+    equal, and the warm median beside the single-device warm time."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+
+    corrs, launches = run_path(
+        label, run, {variant: 1, "paircount_segment_sum": 1}, launches_total
+    )
+    steps = plan_steps(links, catalogs, counts, layout, mesh.size)
+    check(launches.get(variant) == steps == launches.get("paircount_segment_sum"),
+          f"{label}: launches {launches}, expected {steps} per kernel (one per "
+          "non-empty shard and step)")
+    err = max(corr_error(c, s, names) for c, s in zip(corrs, single))
+    nz_err = 0.0
+    if "rd" in names:
+        for c, s in zip(corrs, single):
+            ours, theirs = (RedshiftData.from_corrfuncs(x) for x in (c, s))
+            nz_err = max(nz_err, relative_error(ours.data, theirs.data),
+                         relative_error(ours.samples, theirs.samples))
+    again = run()
+    bitwise = all(
+        np.array_equal(getattr(a, name).counts.counts, getattr(b, name).counts.counts)
+        for a, b in zip(again, corrs) for name in names
+    )
+    check(err <= rtol and nz_err <= rtol,
+          f"{label}: off the single-device run ({err:.3e}, n(z) {nz_err:.3e})")
+    check(bitwise, f"{label}: two runs differ")
+    warm, lo, hi = warm_time(run, SHARDED_WARM_RUNS)
+    log(f"[{card}] {label}: warm {warm:.4f} s (median of {SHARDED_WARM_RUNS}) "
+        f"[{lo:.4f}, {hi:.4f}]; {steps} kernel A + {steps} kernel B launches "
+        f"({launches}); counts vs single device max|err|/max {err:.3e}, n(z) "
+        f"{nz_err:.3e}; two runs bitwise equal")
+
+
+def sharded_phase(card, configs, catalogs, single, launches_total) -> None:
+    """The headline ``crosscorrelate`` under every layout, ``autocorrelate``
+    and config B's cross count under ``ring``, on :func:`sharded_mesh`
+    against the single-device runs ``single``; then the cross-shard sum (the
+    ``psum``'s counterpart) timed against its byte bound."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        autocorrelate,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.parallel import sharded
+    from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+
+    mesh = sharded_mesh()
+    config, config_b = configs["headline"], configs["B"]
+    reference, unknown, randoms = catalogs
+    log(f"{mesh} on a machine with {torch.cuda.device_count()} card(s)")
+    warm, lo, hi = warm_time(
+        lambda: RedshiftData.from_corrfuncs(crosscorrelate(
+            config, reference, unknown, ref_rand=randoms, device="cuda",
+            mesh="single",
+        )[0]),
+        SHARDED_WARM_RUNS,
+    )
+    log(f"[{card}] single device crosscorrelate + n(z): warm {warm:.4f} s "
+        f"(median of {SHARDED_WARM_RUNS}) [{lo:.4f}, {hi:.4f}]")
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    for layout in LAYOUTS:
+        def cross(layout=layout):
+            corrs = crosscorrelate(
+                config, reference, unknown, ref_rand=randoms, device="cuda",
+                mesh=mesh, data_sharding=layout,
+            )
+            RedshiftData.from_corrfuncs(corrs[0])
+            return corrs
+
+        sharded_case(
+            card, f"sharded crosscorrelate + n(z) ({layout}, {mesh.size} shards)",
+            cross, single["cross"], ("dd", "rd"), launches_total, links=links,
+            catalogs=catalogs, counts=("cross DD", "cross RD"), layout=layout,
+            mesh=mesh, variant="paircount_partials",
+        )
+    sharded_case(
+        card, f"sharded autocorrelate (ring, {mesh.size} shards)",
+        lambda: autocorrelate(
+            config, reference, randoms, device="cuda", mesh=mesh,
+            data_sharding="ring",
+        ),
+        single["auto"], ("dd", "dr", "rr"), launches_total, links=links,
+        catalogs=catalogs, counts=("auto DD", "auto DR", "auto RR"),
+        layout="ring", mesh=mesh, variant="paircount_partials_binned",
+    )
+    sharded_case(
+        card, f"sharded config B crosscorrelate (ring, {mesh.size} shards, direct)",
+        lambda: crosscorrelate(
+            config_b, reference, unknown, ref_rand=randoms, device="cuda",
+            mesh=mesh, data_sharding="ring",
+        ),
+        single["B"], ("dd", "rd"), launches_total,
+        links=PatchLinkage.from_catalogs(config_b, *catalogs), catalogs=catalogs,
+        counts=("cross DD", "cross RD"), layout="ring", mesh=mesh,
+        variant="paircount_partials_direct", rtol=DIRECT_RTOL,
+    )
+
+    # the reduction: N partials of the headline DD's shape summed in shard
+    # order on the first device; its bound reads N partials and writes one
+    _, _, pairs = engine_inputs(links, catalogs, "cross DD")
+    shape = (pairs.num_slots, NUM_BINS, links.edges.num_counting_edges)
+    generator = torch.Generator(device="cpu").manual_seed(SEED)
+    host = [torch.rand(shape, generator=generator) for _ in range(mesh.size)]
+    parts = [h.to(device) for h, device in zip(host, mesh.devices)]
+    expected = host[0].clone()
+    for h in host[1:]:
+        expected += h
+    total = sharded._sum_partials([p.clone() for p in parts], mesh.devices[0])
+    check(torch.equal(total.cpu(), expected), "the cross-shard sum is not in shard order")
+    reps = 20
+
+    def sums():
+        for _ in range(reps):
+            sharded._sum_partials(parts, mesh.devices[0])
+
+    ms = cuda_ms(sums, KERNEL_REPS) / reps
+    num_bytes = (mesh.size + 1) * parts[0].numel() * 4
+    log(f"[{card}] cross-shard sum of {mesh.size} partials {tuple(shape)} "
+        f"float32: {ms * 1e3:.2f} us per sum ({mesh.size - 1} torch adds, host "
+        f"launches included); bound {num_bytes / HBM_RATE * 1e6:.4f} us "
+        f"({num_bytes} B over {HBM_RATE:.3g} B/s); equal to the host sum in "
+        "shard order")
+
+
+def mp_child(root: str) -> None:
+    """A process of the two-process phase: join the gloo job, open the
+    headline catalogs from the caches under ``root`` and run
+    ``crosscorrelate`` on the global mesh of 2 x 2 shards in every layout;
+    every layout's counts must equal the parent's single-process 4-shard
+    counts bit for bit. Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.parallel import default_mesh, distributed
+
+    t_start = time.perf_counter()
+    rank = int(os.environ["YAWT_PROCESS_ID"])
+    device = f"cuda:{rank}" if torch.cuda.device_count() >= MP_PROCESSES else "cuda:0"
+    torch.cuda.set_device(device)
+    cuda_paircount.build()
+    distributed.initialize()
+    check(distributed.num_processes() == MP_PROCESSES, "the job is not two processes")
+    mesh = default_mesh(SHARDS, device)
+    per_process = SHARDS // MP_PROCESSES
+    check(mesh.ranks == tuple(r for r in range(MP_PROCESSES) for _ in range(per_process)),
+          f"not a rank-major global mesh: {mesh}")
+    config = Configuration.create(**CONFIG)
+    catalogs = [Catalog(os.path.join(root, name)) for name in CATALOG_NAMES]
+    expected = np.load(os.path.join(root, "expected.npz"))
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    report = dict(rank=rank, device=device, mesh=repr(mesh), layouts={})
+    for layout in LAYOUTS:
+        times = []
+        for _ in range(2):
+            cuda_paircount.reset_launch_counts()
+            t0 = time.perf_counter()
+            (corr,) = crosscorrelate(
+                config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
+                device=device, mesh=mesh, data_sharding=layout,
+            )
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for name in ("dd", "rd"):
+                ours = getattr(corr, name).counts.counts
+                theirs = expected[f"{layout}_{name}"]
+                check(np.array_equal(ours, theirs),
+                      f"rank {rank} {layout} {name}: not the single-process "
+                      f"{SHARDS}-shard counts (max diff "
+                      f"{np.abs(ours - theirs).max():.3e})")
+        steps = plan_steps(links, catalogs, ("cross DD", "cross RD"), layout,
+                           mesh.size, mesh.local_shards())
+        launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+        check(launches.get("paircount_partials") == steps
+              == launches.get("paircount_segment_sum"),
+              f"rank {rank} {layout}: launches {launches}, expected {steps}")
+        report["layouts"][layout] = dict(cold_s=times[0], warm_s=times[1],
+                                         launches=steps)
+    check(distributed.broadcast({"rank": rank}) == {"rank": 0}, "broadcast")
+    check(distributed.run_on_root(lambda: rank) == 0, "run_on_root")
+    distributed.barrier()
+    report["seconds"] = time.perf_counter() - t_start
+    print(json.dumps(report), flush=True)
+
+
+def two_process_phase(card, config, catalogs) -> None:
+    """Write the headline catalogs to caches (``Catalog.to_cache``, root
+    only), count them here on one process's mesh of 4 shards in every
+    layout, then start two children of this script (``--mp-child``) wired
+    with ``YAWT_*`` on localhost, which must reproduce those counts bit for
+    bit on the global mesh of 2 x 2 shards. A child's failure fails the
+    phase."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.correlation.measurements import crosscorrelate
+    from yet_another_wizz_tpu_torch.parallel import Mesh
+
+    root = tempfile.mkdtemp(prefix="yawt_mp_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for name, catalog in zip(CATALOG_NAMES, catalogs):
+            catalog.to_cache(os.path.join(root, name))
+        reopened = [Catalog(os.path.join(root, name)) for name in CATALOG_NAMES]
+        mesh = Mesh(["cuda:0"] * SHARDS)
+        expected = {}
+        for layout in LAYOUTS:
+            (corr,) = crosscorrelate(
+                config, reopened[0], reopened[1], ref_rand=reopened[2],
+                device="cuda", mesh=mesh, data_sharding=layout,
+            )
+            for name in ("dd", "rd"):
+                expected[f"{layout}_{name}"] = getattr(corr, name).counts.counts
+        np.savez(os.path.join(root, "expected.npz"), **expected)
+        del reopened
+        log(f"two processes: caches written and single-process {SHARDS}-shard "
+            f"counts taken in {time.perf_counter() - t0:.2f} s")
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        logs = [os.path.join(root, f"child_{rank}.log") for rank in range(MP_PROCESSES)]
+        for rank in range(MP_PROCESSES):
+            env = {k: v for k, v in os.environ.items() if k != "YAWT_NUM_DEVICES"}
+            env.update(YAWT_COORDINATOR=f"localhost:{port}",
+                       YAWT_NUM_PROCESSES=str(MP_PROCESSES), YAWT_PROCESS_ID=str(rank))
+            with open(logs[rank], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mp-child", root],
+                    env=env, stdout=out, stderr=subprocess.STDOUT,
+                ))
+
+        def tail(rank: int) -> str:
+            with open(logs[rank]) as out:
+                return out.read()[-3000:]
+
+        # a child that fails leaves its peer waiting in a collective: stop
+        # both at the first failure
+        while any(proc.poll() is None for proc in procs):
+            for rank, proc in enumerate(procs):
+                check(proc.poll() in (None, 0),
+                      f"two processes: child {rank} failed:\n{tail(rank)}")
+            check(time.perf_counter() - t0 < MP_TIMEOUT,
+                  f"two processes: the children did not end in {MP_TIMEOUT} s:\n"
+                  + "\n".join(tail(rank) for rank in range(MP_PROCESSES)))
+            time.sleep(0.2)
+        seconds = time.perf_counter() - t0
+        for rank, proc in enumerate(procs):
+            check(proc.returncode == 0,
+                  f"two processes: child {rank} failed:\n{tail(rank)}")
+        outputs = [json.loads(tail(rank).strip().splitlines()[-1])
+                   for rank in range(MP_PROCESSES)]
+        for report in outputs:
+            layouts = ", ".join(
+                f"{layout} {r['cold_s']:.2f} s cold / {r['warm_s']:.3f} s warm, "
+                f"{r['launches']} K1.1 + {r['launches']} B launches"
+                for layout, r in report["layouts"].items()
+            )
+            log(f"[{card}] two processes, rank {report['rank']} on "
+                f"{report['device']} ({report['mesh']}): {layouts}; "
+                f"{report['seconds']:.1f} s in the child")
+        log(f"[{card}] two processes x {SHARDS // MP_PROCESSES} shards: every "
+            f"layout bitwise the single-process {SHARDS}-shard counts on both "
+            f"ranks; broadcast and run_on_root behave; {seconds:.1f} s from "
+            "start to exit")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- survey path (blocked, out of core) ----------------------------------------
 
 
@@ -1264,11 +1627,12 @@ def write_survey_caches(root: str) -> None:
     )
 
 
-def survey_run(config, catalogs, **budgets):
+def survey_run(config, catalogs, mesh=None, data_sharding="replicated", **budgets):
     """One survey measurement (blocked ``crosscorrelate`` DD + RD and the
     jackknife n(z)) in a tile cache of its own, with the ``budgets`` of
-    ``measurement_tile_cache``: ``(w_sp, n(z), stats)``, with the run's
-    phase totals and the cache's statistics in ``stats``."""
+    ``measurement_tile_cache``, on one device or sharded over ``mesh``:
+    ``(w_sp, n(z), stats)``, with the run's phase totals and the cache's
+    statistics in ``stats``."""
     import torch
 
     from yet_another_wizz_tpu_torch.correlation import blocked
@@ -1279,7 +1643,8 @@ def survey_run(config, catalogs, **budgets):
     with blocked.measurement_tile_cache(**budgets) as cache:
         (wsp,) = crosscorrelate(
             config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
-            max_resident_patches=SURVEY_RESIDENT, device="cuda",
+            max_resident_patches=SURVEY_RESIDENT, device="cuda", mesh=mesh,
+            data_sharding=data_sharding,
         )
         nz = RedshiftData.from_corrfuncs(wsp)
     torch.cuda.synchronize()
@@ -1509,6 +1874,32 @@ def survey_checks(card, config, launches_total, root) -> None:
         catalog.drop_tile_cache()
     torch.cuda.empty_cache()
 
+    mesh = sharded_mesh()
+    log(f"-- survey, sharded: blocked crosscorrelate under ring on {mesh}")
+    for run in range(2):
+        t0 = time.perf_counter()
+        (wsp, nz, stats), launches = run_path(
+            f"survey sharded (ring, {mesh.size} shards) run {run}",
+            lambda: survey_run(config, catalogs, mesh=mesh, data_sharding="ring"),
+            {"paircount_partials": 1, "paircount_segment_sum": 1},
+            launches_total,
+        )
+        seconds = time.perf_counter() - t0
+        err = corr_error(wsp, first, ("dd", "rd"))
+        check(err <= RTOL, f"survey sharded: off the single-device survey ({err:.3e})")
+        check(launches.get("paircount_partials") == launches.get("paircount_segment_sum"),
+              f"survey sharded: launches {launches}")
+        if run == 0:
+            sharded_first = wsp
+        check(same_counts(wsp, sharded_first), "survey sharded: two runs differ")
+        check_nz(nz, "survey sharded", SURVEY_PATCHES)
+        log(f"[{card}] survey sharded (ring, {mesh.size} shards) run {run}: "
+            f"{seconds:.3f} s, {launches.get('paircount_partials')} kernel A + "
+            f"{launches.get('paircount_segment_sum')} kernel B launches over "
+            f"{stats['num_block_pairs']} block pairs; counts vs single device "
+            f"max|err|/max {err:.3e}; {format_stats(stats)}")
+    del wsp, sharded_first
+
     log("-- survey: warm runs (tile store hits), each in a tile cache of its own")
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1610,6 +2001,9 @@ def survey_checks(card, config, launches_total, root) -> None:
 
 def main() -> None:
     card = environment()
+    # every phase but the sharded ones counts on one card: pin the automatic
+    # device pool, which would spread them over a machine's cards
+    os.environ["YAWT_NUM_DEVICES"] = "1"
 
     import numpy as np
     import torch
@@ -1870,6 +2264,17 @@ def main() -> None:
             f"{warm * 1e3:.3f} ms warm measurement")
     log(f"peak device memory over the timed paths "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    t0 = time.perf_counter()
+    log("-- sharded: crosscorrelate in every layout, autocorrelate and config B "
+        "under ring")
+    sharded_phase(
+        card, configs, catalogs, {"cross": [wsp], "auto": [wss], "B": wsp_b},
+        launches_total,
+    )
+    log("-- two processes: gloo, a global mesh of 2 x 2 shards")
+    two_process_phase(card, config, catalogs)
+    log(f"sharded and two-process phases {time.perf_counter() - t0:.1f} s")
     del catalogs, reference, unknown, randoms
 
     log("-- survey path (blocked crosscorrelate over disk caches, 7M rows)")
@@ -1914,5 +2319,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--survey-child"]:
         survey_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--mp-child"]:
+        mp_child(sys.argv[2])
     else:
         main()

@@ -520,11 +520,27 @@ def test_direct_mode_audits_with_union_edges(packages):
 
 
 def test_multi_device_options_still_raise(packages):
+    """An audited run under a mesh repairs the sharded counts into those of
+    the single-device audited run; a mesh that is not a ``Mesh`` raises."""
+    from yet_another_wizz_tpu_torch.parallel import default_mesh
+
     reference, unknown, randoms = packages["port"]
     config = Configuration.create(**CONFIG)
-    for kwargs in (dict(mesh="columns"), dict(data_sharding="ring")):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            measurements.crosscorrelate(
-                config, reference, unknown, ref_rand=randoms, device="cpu",
-                audit=True, **kwargs,
-            )
+    with pytest.raises(TypeError, match="Mesh"):
+        measurements.crosscorrelate(
+            config, reference, unknown, ref_rand=randoms, device="cpu",
+            audit=True, mesh="columns",
+        )
+    (single,) = measurements.crosscorrelate(
+        config, reference, unknown, ref_rand=randoms, device="cpu", audit=True,
+        mesh="single",
+    )
+    (sharded,) = measurements.crosscorrelate(
+        config, reference, unknown, ref_rand=randoms, device="cpu", audit=True,
+        mesh=default_mesh(3, "cpu"), data_sharding="ring",
+    )
+    for name in ("dd", "rd"):
+        assert_counts_close(
+            getattr(sharded, name).counts.counts,
+            getattr(single, name).counts.counts,
+        )

@@ -377,17 +377,20 @@ def test_eviction_drops_device_lanes(catalogs, config):
 
 
 def test_audit_and_mesh_still_raise(catalogs, config):
-    """``mesh`` still raises; the audit runs blocked and gives the blocked
-    counts of the in-memory audited measurement."""
-    with pytest.raises(NotImplementedError):
+    """Blocked under a mesh gives the blocked single-device counts (a mesh
+    that is not a ``Mesh`` raises); the audit runs blocked and gives the
+    blocked counts of the in-memory audited measurement."""
+    from yet_another_wizz_tpu_torch.parallel import default_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         cross(config, catalogs, max_resident_patches=4, mesh=object())
+    single = cross(config, catalogs, max_resident_patches=4)
+    sharded = cross(
+        config, catalogs, max_resident_patches=4, mesh=default_mesh(3, "cpu"),
+        data_sharding="ring",
+    )
+    assert_corrfunc_close(sharded, single, ("dd", "rd"))
     links = PatchLinkage.from_catalogs(config, *catalogs[:2])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        blocked.count_pairs_blocked(
-            links.edges, links.linkage, catalogs[0], catalogs[1],
-            config.binning.binning, auto=False, binned2=False, device="cpu",
-            audit=True, data_sharding="ring",
-        )
     audited = blocked.count_pairs_blocked(
         links.edges, links.linkage, catalogs[0], catalogs[1],
         config.binning.binning, auto=False, binned2=False, device="cpu",

@@ -523,3 +523,29 @@ def test_blocked_audit_matches_in_memory_on_the_card(device):
             getattr(blocked, name).counts.counts,
             getattr(memory, name).counts.counts, rtol=1e-6, atol=1e-6,
         )
+
+
+@pytest.mark.parametrize("data_sharding", ["replicated", "columns", "ring"])
+def test_sharded_on_repeated_card_matches_single_device(device, data_sharding):
+    """Four shards on one card: the counts of each layout equal the
+    single-device counts within 1e-6, and each shard launches kernel A and
+    kernel B once per non-empty step."""
+    from yet_another_wizz_tpu_torch.parallel import Mesh, count_pairs_sharded
+
+    rng = np.random.default_rng(11)
+    tiles1, tiles2, pairs, table = cross_inputs(rng)
+    single = count_pairs_tiles(
+        tiles1, tiles2, pairs, table, device=device, mesh="single"
+    )
+    mesh = Mesh([torch.device("cuda", 0)] * 4)
+    cuda_paircount.reset_launch_counts()
+    sharded = count_pairs_sharded(
+        tiles1, tiles2, pairs, table, mesh=mesh, data_sharding=data_sharding
+    )
+    launches = dict(cuda_paircount.launch_counts)
+    steps = sum(len(shard) for shard in pairs._device_cache[("shards", data_sharding, 4)])
+    assert launches["paircount_partials"] == steps
+    assert launches["paircount_segment_sum"] == steps
+    np.testing.assert_allclose(
+        sharded, single, rtol=1e-6, atol=1e-6 * np.abs(single).max()
+    )

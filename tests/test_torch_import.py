@@ -103,7 +103,7 @@ def test_cuda_backend_refuses_cpu_tensors():
         count_pairs_tiles(
             tiles1, tiles2, pairs, table, backend="cuda", device="cpu"
         )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         count_pairs_tiles(
             tiles1, tiles2, pairs, table, device="cpu", mesh=object()
         )

@@ -14,8 +14,12 @@ from numpy.testing import assert_array_equal
 
 import yet_another_wizz_tpu as jax_package
 import yet_another_wizz_tpu.catalog as jax_catalog_module
+import yet_another_wizz_tpu.parallel as jax_parallel_module
+import yet_another_wizz_tpu.parallel.distributed as jax_distributed_module
 import yet_another_wizz_tpu_torch as port_package
 import yet_another_wizz_tpu_torch.catalog as port_catalog_module
+import yet_another_wizz_tpu_torch.parallel as port_parallel_module
+import yet_another_wizz_tpu_torch.parallel.distributed as port_distributed_module
 from yet_another_wizz_tpu.catalog import Catalog as JaxCatalog
 from yet_another_wizz_tpu.config import Configuration as JaxConfiguration
 from yet_another_wizz_tpu.correlation.corrfunc import (
@@ -220,8 +224,13 @@ def test_patch_reads_a_cache_as_the_jax_patch_does(tmp_path):
 
 @pytest.mark.parametrize(
     "port, jax",
-    [(port_package, jax_package), (port_catalog_module, jax_catalog_module)],
-    ids=["top level", "catalog"],
+    [
+        (port_package, jax_package),
+        (port_catalog_module, jax_catalog_module),
+        (port_parallel_module, jax_parallel_module),
+        (port_distributed_module, jax_distributed_module),
+    ],
+    ids=["top level", "catalog", "parallel", "parallel.distributed"],
 )
 def test_public_names_equal_jax(port, jax):
     assert sorted(port.__all__) == sorted(jax.__all__)

@@ -479,36 +479,47 @@ class Catalog(Mapping):
     def to_cache(
         self, cache_directory: Path | str, *, overwrite: bool = False
     ) -> None:
-        """Write the catalog to a reference-compatible patch cache (one
-        process; the JAX package's multi-process variant is not ported)."""
+        """Write the catalog to a reference-compatible patch cache.
+
+        Root-only in multi-process jobs (every process holds the same
+        in-memory catalog): the outcome broadcast of
+        :func:`~yet_another_wizz_tpu_torch.parallel.distributed.run_on_root`
+        makes the cache visible to all processes through the shared file
+        system and raises a root-side error on every process."""
+        from yet_another_wizz_tpu_torch.parallel.distributed import run_on_root
+
         cache = Path(cache_directory)
-        prepare_cache_directory(cache, overwrite)
-        logger.info(
-            "writing %d patches to cache: %s", self.num_patches, cache
-        )
-        # one stable sort + boundary search instead of a full-array
-        # boolean mask per patch
-        order = np.argsort(self._patch_ids, kind="stable")
-        sorted_chunk = self._chunk[order]
-        bounds = np.searchsorted(
-            self._patch_ids[order], np.arange(self.num_patches + 1)
-        )
-        for pid in range(self.num_patches):
-            rows = sorted_chunk[bounds[pid] : bounds[pid + 1]]
-            patch_dir = cache / PATCH_NAME_TEMPLATE.format(pid)
-            patch_dir.mkdir()
-            write_patch_data(patch_dir / "data.bin", rows)
-            # record the catalog's own (possibly applied) patch center
-            # so reopening the cache preserves it
-            meta = Metadata.compute(
-                DataChunk.get_coords(rows),
-                weights=DataChunk.getattr(rows, "weights"),
-                center=AngularCoordinates.from_3d(
-                    self.patch_centers_xyz[pid : pid + 1]
-                ),
+
+        def write_on_root() -> None:
+            prepare_cache_directory(cache, overwrite)
+            logger.info(
+                "writing %d patches to cache: %s", self.num_patches, cache
             )
-            meta.to_file(patch_dir / "meta.yml")
-        write_patch_ids_file(cache, self.num_patches)
+            # one stable sort + boundary search instead of a full-array
+            # boolean mask per patch
+            order = np.argsort(self._patch_ids, kind="stable")
+            sorted_chunk = self._chunk[order]
+            bounds = np.searchsorted(
+                self._patch_ids[order], np.arange(self.num_patches + 1)
+            )
+            for pid in range(self.num_patches):
+                rows = sorted_chunk[bounds[pid] : bounds[pid + 1]]
+                patch_dir = cache / PATCH_NAME_TEMPLATE.format(pid)
+                patch_dir.mkdir()
+                write_patch_data(patch_dir / "data.bin", rows)
+                # record the catalog's own (possibly applied) patch center
+                # so reopening the cache preserves it
+                meta = Metadata.compute(
+                    DataChunk.get_coords(rows),
+                    weights=DataChunk.getattr(rows, "weights"),
+                    center=AngularCoordinates.from_3d(
+                        self.patch_centers_xyz[pid : pid + 1]
+                    ),
+                )
+                meta.to_file(patch_dir / "meta.yml")
+            write_patch_ids_file(cache, self.num_patches)
+
+        run_on_root(write_on_root)
         self.cache_directory = cache
 
     @classmethod
@@ -587,7 +598,12 @@ class Catalog(Mapping):
 
         Inputs larger than one chunk are streamed through patch assignment
         into the disk cache with bounded memory (``streaming`` forces or
-        disables this; it requires a ``cache_directory``). ``max_workers``
+        disables this; it requires a ``cache_directory``). In a
+        multi-process job streaming ingestion is collective: the root
+        resolves the patch centers and reads, every process writes the
+        patches it owns into the shared cache
+        (:func:`~yet_another_wizz_tpu_torch.catalog.ingest.
+        write_patches_collective`). ``max_workers``
         bounds the host worker pools of the ingestion. ``device`` (which
         raises when it is a CUDA device and CUDA is not available) runs the
         patch assignment as in :meth:`from_arrays`.
@@ -612,15 +628,27 @@ class Catalog(Mapping):
                 if streaming:
                     from yet_another_wizz_tpu_torch.catalog.ingest import (
                         resolve_patch_centers,
+                        write_patches_collective,
                         write_patches_streaming,
                     )
+                    from yet_another_wizz_tpu_torch.parallel.distributed import (
+                        num_processes,
+                        run_on_root,
+                    )
 
+                    if cache_directory is None and num_processes() > 1:
+                        raise ValueError(
+                            "multi-process streaming ingestion requires a "
+                            "'cache_directory' (the processes share it)"
+                        )
                     # patch-source priority matches the in-memory path
                     # (_resolve_patch_assignment): explicit centers beat a
-                    # patch-id column beat kmeans
+                    # patch-id column beat kmeans; the root resolves them
+                    # once and every process receives the same centers
                     centers = None
                     if patch_centers is not None or patch_name is None:
-                        centers = resolve_patch_centers(
+                        centers = run_on_root(
+                            resolve_patch_centers,
                             reader,
                             patch_centers=patch_centers,
                             patch_num=patch_num,
@@ -632,6 +660,13 @@ class Catalog(Mapping):
                                 "exactly one of 'patch_centers', 'patch_name', "
                                 "or 'patch_num' is required"
                             )
+                    if num_processes() > 1:
+                        write_patches_collective(
+                            reader, cache_directory, centers,
+                            overwrite=overwrite, progress=progress,
+                            device=device,
+                        )
+                        return cls(cache_directory)
                     # stream through patch assignment, keeping the assembled
                     # data so the catalog is constructed directly (no cache
                     # read-back)

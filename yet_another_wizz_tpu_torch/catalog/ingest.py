@@ -9,9 +9,9 @@ the next chunk is assigned to its patches (on ``device`` for large chunks,
 see :func:`~yet_another_wizz_tpu_torch.ops.kmeans.assign_patches`).
 
 Used by :meth:`Catalog.from_file` when ``streaming=True`` (automatic for
-inputs larger than one chunk). The multi-process writer
-(:func:`write_patches_collective`) comes with the port of the JAX package's
-``parallel`` layer.
+inputs larger than one chunk); in a multi-process job through
+:func:`write_patches_collective`, where the root reads and every process
+writes the patches it owns.
 """
 
 from __future__ import annotations
@@ -24,7 +24,11 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
-from yet_another_wizz_tpu_torch.catalog.patch import Metadata, PatchWriter
+from yet_another_wizz_tpu_torch.catalog.patch import (
+    Metadata,
+    PatchWriter,
+    read_patch_data,
+)
 from yet_another_wizz_tpu_torch.coordinates import AngularCoordinates, radec_to_xyz
 from yet_another_wizz_tpu_torch.datachunk import DataChunk
 from yet_another_wizz_tpu_torch.ops.kmeans import assign_patches, kmeans_patch_centers
@@ -42,6 +46,11 @@ __all__ = [
 ]
 
 logger = logging.getLogger(__name__)
+
+COLLECTIVE_BROADCAST_ROWS = 1_048_576
+"""Row cap per broadcast round of :func:`write_patches_collective` (~40 MB
+of columns): every round's pickled patch splits are held by every
+process."""
 
 
 def _applied_center(centers_xyz, pid: int):
@@ -288,9 +297,151 @@ def write_patches_streaming(
     return num_patches, (np.concatenate(patch_arrays), patch_ids)
 
 
-def write_patches_collective(*args, **kwargs) -> int:
-    """Multi-process streaming ingestion over several hosts: comes with the
-    port of the JAX package's ``parallel`` layer (``torch.distributed``)."""
-    raise NotImplementedError(
-        "multi-process ingestion is not ported yet; ingest in one process"
+def write_patches_collective(
+    reader: BaseReader,
+    cache_directory: Path | str,
+    centers_xyz: NDArray | None,
+    *,
+    overwrite: bool = False,
+    progress: bool = False,
+    device: torch.device | str = "cuda",
+) -> int:
+    """Multi-process streaming ingestion (the JAX package's
+    ``write_patches_collective``).
+
+    The root process streams the reader through patch assignment (on
+    ``device``) and broadcasts each chunk's patch splits; every process
+    writes only the patches it owns (``pid % num_processes``), so buffered
+    cache writing, metadata computation and file I/O run in parallel, the
+    analogue of the reference's reader/writer rank split
+    (yaw/catalog/catalog.py:587-908). All processes must share the cache
+    file system. The cache equals, byte for byte, the single-process
+    streaming ingest's.
+
+    Errors: a root-side reader error is broadcast in the stream and raised
+    everywhere; a writer error on any process is kept until the final
+    status exchange (the process keeps draining the stream so the
+    collectives stay in step), then raised on every process.
+
+    Returns the number of patches.
+    """
+    from yet_another_wizz_tpu_torch.catalog.catalog import (
+        PATCH_NAME_TEMPLATE,
+        prepare_cache_directory,
+        write_patch_ids_file,
     )
+    from yet_another_wizz_tpu_torch.catalog.readers import prefetch_chunks
+    from yet_another_wizz_tpu_torch.parallel import distributed as dist
+
+    num_procs = dist.num_processes()
+    rank = dist.process_index()
+    cache = Path(cache_directory)
+    dist.run_on_root(prepare_cache_directory, cache, overwrite)
+
+    writers: dict[int, PatchWriter] = {}
+    local_error: BaseException | None = None
+    num_patches = 0
+
+    def write_owned(info, splits) -> None:
+        nonlocal local_error
+        if local_error is not None:
+            return  # stay in step, but stop touching the file system
+        try:
+            for pid, part in splits:
+                if pid % num_procs != rank:
+                    continue
+                if pid not in writers:
+                    writers[pid] = PatchWriter(
+                        cache / PATCH_NAME_TEMPLATE.format(pid), info
+                    )
+                writers[pid].process_chunk(part)
+        except Exception as err:
+            local_error = err
+
+    def bounded(chunks):
+        for chunk in chunks:
+            for lo in range(0, len(chunk), COLLECTIVE_BROADCAST_ROWS):
+                yield chunk[lo : lo + COLLECTIVE_BROADCAST_ROWS]
+
+    if dist.on_root():
+        num_expected = 0 if centers_xyz is None else len(centers_xyz)
+        seen: set[int] = set()
+        chunk_iter = bounded(prefetch_chunks(reader))
+        if progress:
+            from yet_another_wizz_tpu_torch.utils.logging import Indicator
+
+            # full chunks plus the (shorter) last one, in bounded rounds
+            rounds = -(-reader.chunksize // COLLECTIVE_BROADCAST_ROWS)
+            full = max(0, reader.num_chunks - 1)
+            last = reader.num_records - full * reader.chunksize
+            total = full * rounds + max(1, -(-last // COLLECTIVE_BROADCAST_ROWS))
+            chunk_iter = Indicator(chunk_iter, total)
+        root_error: BaseException | None = None
+        try:
+            for chunk in chunk_iter:
+                chunk, patch_ids = _chunk_patch_ids(chunk, centers_xyz, device)
+                splits, sorted_ids = _split_by_patch(chunk, patch_ids)
+                seen.update(pid for pid, _ in splits)
+                if len(sorted_ids):
+                    num_expected = max(num_expected, int(sorted_ids[-1]) + 1)
+                info = DataChunk.get_info(chunk)
+                dist.broadcast(("chunk", info, splits))
+                write_owned(info, splits)
+            missing = sorted(set(range(num_expected)) - seen)
+            if missing:
+                raise ValueError(f"patches with no data: {missing}")
+        except Exception as err:
+            root_error = err
+        if root_error is not None:
+            # every process raises and skips the status exchange: the
+            # stream is the last collective then
+            dist.broadcast(("error", dist.picklable_exception(root_error)))
+            raise root_error
+        dist.broadcast(("done", num_expected))
+        num_patches = num_expected
+    else:
+        while True:
+            message = dist.broadcast(None)
+            if message[0] == "chunk":
+                write_owned(*message[1:])
+            elif message[0] == "done":
+                num_patches = message[1]
+                break
+            else:  # the root failed mid-stream; all processes raise
+                raise message[1]
+
+    if local_error is None:
+        try:
+            for pid, patch_writer in writers.items():
+                patch_writer.finalize()
+                _, data = read_patch_data(patch_writer.data_path)
+                meta = Metadata.compute(
+                    DataChunk.get_coords(data),
+                    weights=DataChunk.getattr(data, "weights"),
+                    center=_applied_center(centers_xyz, pid),
+                )
+                meta.to_file(patch_writer.cache_path / "meta.yml")
+            if rank == 0:
+                write_patch_ids_file(cache, num_patches)
+        except Exception as err:
+            local_error = err
+
+    # per-process status exchange: every process learns of every error
+    # (and so waits for the complete cache)
+    failures = []
+    for source in range(num_procs):
+        payload = None
+        if rank == source and local_error is not None:
+            payload = dist.picklable_exception(local_error)
+        status = dist.broadcast(payload, is_source=rank == source)
+        if status is not None:
+            failures.append((source, status))
+    if failures:
+        source, first = failures[0]
+        raise RuntimeError(f"collective ingestion failed on process {source}") from first
+
+    logger.info(
+        "streamed %d patches (%s records) to cache over %d processes",
+        num_patches, reader.num_records, num_procs,
+    )
+    return num_patches

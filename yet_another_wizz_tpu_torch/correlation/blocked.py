@@ -24,9 +24,11 @@ its dump row P of the accumulator, has nothing to do here.
 
 Enabled through ``max_resident_patches`` on the measurement functions.
 With ``audit`` each block pair's count is audited (the engine's
-``audit_boundary_counts``) and scattered on the host in float64.
-Multi-device execution (``mesh``) is not ported yet and raises
-``NotImplementedError``.
+``audit_boundary_counts``) and scattered on the host in float64. Under a
+``mesh`` each block pair is counted sharded
+(:func:`~yet_another_wizz_tpu_torch.parallel.count_pairs_sharded`), which
+places the lanes per call: its counts are scattered on the host (K2.3 is
+single-device) and the prefetch workers upload nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from yet_another_wizz_tpu_torch.ops.tiles import (
     build_tile_set,
     preferred_tile_layout,
 )
+from yet_another_wizz_tpu_torch.parallel.sharded import resolve_mesh
 
 if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.binning import Binning
@@ -584,12 +587,19 @@ def count_pairs_blocked(
     each block pair is then counted synchronously with the union edges (no
     direct mode), and its repaired float64 counts are scattered on the host
     (no device accumulation, which would round them to float32).
-    ``mesh``/``data_sharding`` are not ported yet (raise
-    ``NotImplementedError``)."""
-    if mesh not in (None, "single") or data_sharding != "replicated":
-        raise NotImplementedError("multi-device execution is not ported yet")
-    if backend != "oracle":
+    ``mesh`` and ``data_sharding`` are those of
+    :func:`~yet_another_wizz_tpu_torch.ops.paircount.count_pairs_tiles`,
+    resolved once for all block pairs; under a mesh the counts are
+    scattered on the host and the device is the mesh's first of this
+    process."""
+    if backend == "oracle":
+        mesh = None
+    else:
         device = resolve_device(device)
+        mesh = resolve_mesh(mesh, device)
+    local = [] if mesh is None else mesh.local_shards()
+    if local:
+        device = resolve_device(mesh.devices[local[0]])
     tile_size = tile_size or DEFAULT_TILE_SIZE
     num_patches = catalog1.num_patches
     if catalog2.num_patches != num_patches:
@@ -642,7 +652,7 @@ def count_pairs_blocked(
             auto=auto, binned2=binned2, mode=mode, tile_size=tile_size,
             backend=backend, device=device, layout1=layout1, layout2=layout2,
             indicator=indicator, num_patches=num_patches, result=result,
-            cache=cache, audit=audit,
+            cache=cache, audit=audit, mesh=mesh, data_sharding=data_sharding,
         )
         if own_cache and cache is not None:
             logger.debug(
@@ -716,7 +726,8 @@ def reset_phase_totals() -> None:
 def _blocked_loop(
     edges, linkage, catalog1, catalog2, binning, starts, block,
     *, auto, binned2, mode, tile_size, backend, device, layout1, layout2,
-    indicator, num_patches, result, cache, audit=False,
+    indicator, num_patches, result, cache, audit=False, mesh=None,
+    data_sharding="replicated",
 ) -> None:
     t_entry = time.perf_counter()
     phases = {
@@ -735,11 +746,12 @@ def _blocked_loop(
     on_card = backend != "oracle" and device.type == "cuda"
     # the counts are reduced and scattered on the device into one small
     # accumulator, fetched once per count; YAWT_DEVICE_ACCUMULATE=0 copies
-    # each block pair's counts to the host and scatters them there, as does
-    # the audit, whose repaired counts are float64 on the host
+    # each block pair's counts to the host and scatters them there, as do
+    # the audit, whose repaired counts are float64 on the host, and a mesh
     device_accumulate = (
         backend != "oracle"
         and not audit
+        and mesh is None
         and os.environ.get("YAWT_DEVICE_ACCUMULATE", "1").strip() != "0"
     )
     # per queued block pair: the event after its work on the card (None off
@@ -819,8 +831,9 @@ def _blocked_loop(
 
     # lanes of prefetched blocks are copied on a side stream, overlapping
     # the kernels queued on the current one (TileSet.device_data makes the
-    # current stream wait for a copy before its first use)
-    upload_stream = torch.cuda.Stream(device) if on_card else None
+    # current stream wait for a copy before its first use); a mesh places
+    # its lanes per call
+    upload_stream = torch.cuda.Stream(device) if on_card and mesh is None else None
     uploads: list = []
 
     def warm_upload(tiles):
@@ -1021,6 +1034,8 @@ def _blocked_loop(
                     "queue", count_pairs_tiles, tiles1, tiles2, pairs, table,
                     backend=backend, device=device, edges_radian=edges_radian,
                     audit=audit, defer=True, direct=spec,
+                    mesh="single" if mesh is None else mesh,
+                    data_sharding=data_sharding,
                 )
                 if device_accumulate:
                     timed("queue", queue_scatter, cumulative, mapper, pairs, lo1, lo2)

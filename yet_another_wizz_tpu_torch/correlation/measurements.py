@@ -29,9 +29,11 @@ it counts with the union edges (no direct mode), synchronously, and
 recounts in float64 the patch-pair slots that hold a pair within float32
 resolution of an edge.
 
-Not ported yet: multi-device execution (``mesh``, ``data_sharding``).
-Those parameters raise ``NotImplementedError`` when given a value other
-than their default.
+With ``mesh`` (a :class:`~yet_another_wizz_tpu_torch.parallel.sharded.
+Mesh`, ``"single"``, or None for the automatic pool) every count runs
+sharded over the mesh in the layout ``data_sharding``
+(:func:`~yet_another_wizz_tpu_torch.parallel.count_pairs_sharded`), in
+memory or per block pair.
 """
 
 from __future__ import annotations
@@ -93,12 +95,6 @@ logger = logging.getLogger(__name__)
 LINKAGE_SLACK = 1.0 + 1e-9
 """Relative slack on the linkage cutoff so pairs exactly at the maximum
 angular scale are never pruned."""
-
-
-def _check_supported(mesh, data_sharding) -> None:
-    """Raise for the execution options this package does not run yet."""
-    if mesh not in (None, "single") or data_sharding != "replicated":
-        raise NotImplementedError("multi-device execution is not ported yet")
 
 
 @contextlib.contextmanager
@@ -297,11 +293,11 @@ class PatchLinkage:
         (the float64 ``oracle`` backend processes and the threads of the
         audit's float64 recount). ``progress`` shows the blocked path's
         progress; it has no effect on the in-memory path. ``audit`` runs the exact-boundary
-        audit (see the module docstring).
+        audit (see the module docstring). ``mesh`` and ``data_sharding``
+        select the devices (see the module docstring).
         """
         from yet_another_wizz_tpu_torch.utils.misc import thread_limit
 
-        _check_supported(mesh, data_sharding)
         if count_type_info is not None:
             logger.info("counting %s from patch pairs", count_type_info)
 
@@ -318,6 +314,7 @@ class PatchLinkage:
                     backend=backend, device=device,
                     max_resident_patches=max_resident_patches,
                     progress=progress, tile_cache=_tile_cache, audit=audit,
+                    mesh=mesh, data_sharding=data_sharding,
                 )
             result = [
                 NormalisedCounts(per_scale, sum_weights) for per_scale in counts
@@ -327,7 +324,8 @@ class PatchLinkage:
         with thread_limit(max_workers):
             finalize_engine = self._run_engine(
                 catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
-                backend=backend, device=device, audit=audit,
+                backend=backend, device=device, audit=audit, mesh=mesh,
+                data_sharding=data_sharding,
             )
 
         def finish() -> list[NormalisedCounts]:
@@ -391,6 +389,7 @@ class PatchLinkage:
     def _run_blocked(
         self, catalog1, catalog2, *, auto, binned2, mode, backend, device,
         max_resident_patches, progress=False, tile_cache=None, audit=False,
+        mesh=None, data_sharding="replicated",
     ):
         """The device-memory-bounded path: stream patch blocks through the
         engine (:func:`~yet_another_wizz_tpu_torch.correlation.blocked.
@@ -407,6 +406,7 @@ class PatchLinkage:
             auto=auto, binned2=binned2, mode=mode,
             max_resident_patches=max_resident_patches, backend=backend,
             device=device, progress=progress, cache=tile_cache, audit=audit,
+            mesh=mesh, data_sharding=data_sharding,
         )
         counts = [
             PatchedCounts(binning, scale_counts, auto=auto)
@@ -515,7 +515,7 @@ class PatchLinkage:
 
     def _run_engine(
         self, catalog1, catalog2, *, auto, binned2, mode, backend, device,
-        audit=False,
+        audit=False, mesh=None, data_sharding="replicated",
     ):
         binning = self.config.binning.binning
         num_bins = len(binning)
@@ -536,7 +536,8 @@ class PatchLinkage:
         cumulative = count_pairs_tiles(
             tiles1, tiles2, pairs, table,
             backend=backend, device=device, edges_radian=edges_radian,
-            audit=audit, defer=True, direct=direct_spec,
+            audit=audit, mesh=mesh, data_sharding=data_sharding, defer=True,
+            direct=direct_spec,
         )
         fetch = _copy_to_host(cumulative)
 
@@ -588,12 +589,12 @@ def autocorrelate(
     becomes available. The pair counts run on ``device``, in memory or
     with ``max_resident_patches`` blocked, as in :func:`crosscorrelate`.
     """
-    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(data, random)
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
         device=device, max_resident_patches=max_resident_patches, audit=audit,
+        mesh=mesh, data_sharding=data_sharding,
     )
 
     logger.info(
@@ -659,7 +660,6 @@ def crosscorrelate(
     float32 misclassification at the bin edges (see the module docstring);
     ``max_workers`` bounds the threads of its float64 recount.
     """
-    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, ref_rand, unk_rand)
     count_dr = unk_rand is not None
@@ -670,6 +670,7 @@ def crosscorrelate(
     kwargs = dict(
         progress=progress, max_workers=max_workers, backend=backend,
         device=device, max_resident_patches=max_resident_patches, audit=audit,
+        mesh=mesh, data_sharding=data_sharding,
     )
     logger.info(
         "computing cross-correlation from DD%s%s%s",
@@ -745,7 +746,6 @@ def autocorrelate_scalar(
     """Measure the angular autocorrelation amplitude of a scalar (kappa)
     field in bins of redshift, on ``device`` (in memory or with
     ``max_resident_patches`` blocked) as in :func:`autocorrelate`."""
-    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     logger.info("computing scalar auto-correlation with DD")
     links = PatchLinkage.from_catalogs(config, data)
@@ -754,7 +754,8 @@ def autocorrelate_scalar(
             data, mode="kk", backend=backend, device=device,
             progress=progress, max_workers=max_workers,
             max_resident_patches=max_resident_patches, audit=audit,
-            count_type_info="DD", _tile_cache=tile_cache,
+            mesh=mesh, data_sharding=data_sharding, count_type_info="DD",
+            _tile_cache=tile_cache,
         )
     return [ScalarCorrFunc(counts) for counts in dd]
 
@@ -785,7 +786,6 @@ def crosscorrelate_scalar(
     Without unknown randoms the counts are normalised by the mean kappa
     over the footprint instead of a DR term (from the in-memory tiles, so
     a ``LazyCatalog`` reference needs ``unk_rand``)."""
-    _check_supported(mesh, data_sharding)
     device = resolve_device(device)
     ensure_unique_catalogs(reference, unknown, unk_rand)
     count_dr = unk_rand is not None
@@ -800,7 +800,7 @@ def crosscorrelate_scalar(
     kwargs = dict(
         backend=backend, device=device, progress=progress,
         max_workers=max_workers, max_resident_patches=max_resident_patches,
-        audit=audit,
+        audit=audit, mesh=mesh, data_sharding=data_sharding,
     )
     # queue both count types on the device before finalizing either, the
     # same defer/finalize overlap crosscorrelate applies across DD..RR

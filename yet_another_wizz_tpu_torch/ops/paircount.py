@@ -601,9 +601,15 @@ def count_pairs_tiles(
     misclassification against the float64 reference; the result is then
     always the float64 numpy array (``defer`` has no effect).
 
-    Not ported yet: a ``mesh`` other than ``None``/``"single"`` and
-    ``data_sharding`` other than ``"replicated"`` (raise
-    ``NotImplementedError``).
+    ``mesh`` selects the devices: ``"single"`` pins ``device``; None takes
+    :func:`~yet_another_wizz_tpu_torch.parallel.auto_mesh` of ``device``
+    (single-device unless several cards, ``YAWT_NUM_DEVICES`` or a
+    multi-process job ask for a mesh); a
+    :class:`~yet_another_wizz_tpu_torch.parallel.sharded.Mesh` counts
+    sharded in the layout ``data_sharding``
+    (:func:`~yet_another_wizz_tpu_torch.parallel.count_pairs_sharded`),
+    and its first device of this process runs the audit. The ``oracle``
+    backend ignores it.
     """
     if audit and edges_radian is None:
         raise ValueError("audit=True requires 'edges_radian'")
@@ -612,8 +618,6 @@ def count_pairs_tiles(
             "direct counting requires the cumulative representation for "
             "audit/oracle execution"
         )
-    if mesh not in (None, "single") or data_sharding != "replicated":
-        raise NotImplementedError("multi-device execution is not ported yet")
     cols_binned = tiles2.binned
     if cols_binned and tiles1.num_bins != tiles2.num_bins:
         raise ValueError("tile sets have inconsistent binning")
@@ -627,7 +631,27 @@ def count_pairs_tiles(
             raise ValueError("the 'oracle' backend requires 'edges_radian'")
         return _count_pairs_oracle_backend(tiles1, tiles2, pairs, edges_radian)
 
+    from yet_another_wizz_tpu_torch.parallel.sharded import (
+        count_pairs_sharded,
+        resolve_mesh,
+    )
+
     device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    if mesh is not None:
+        counts = count_pairs_sharded(
+            tiles1, tiles2, pairs, chord2_table, mesh=mesh,
+            data_sharding=data_sharding, backend=backend,
+            defer=defer and not audit, direct=direct,
+        )
+        if audit:
+            local = mesh.local_shards()
+            counts, _ = audit_boundary_counts(
+                tiles1, tiles2, pairs, counts, chord2_table, edges_radian,
+                device=mesh.devices[local[0]] if local else device,
+            )
+        return counts
+
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(
             f"backend 'cuda' needs a CUDA device, got device '{device}'"

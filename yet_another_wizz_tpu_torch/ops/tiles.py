@@ -50,6 +50,7 @@ __all__ = [
     "chunk_caps",
     "morton_codes",
     "preferred_tile_layout",
+    "shard_bounds",
 ]
 
 CHANNEL_XYZ_HI = slice(0, 3)
@@ -76,6 +77,16 @@ chunk pairs within ~2e-5 rad (4 arcsec) of the exact boundary."""
 CAP_WIDTH = 8
 """float32 values per chunk cap: center x, y, z, radius, lowest and
 highest bin, two zeros (two 16-byte loads)."""
+
+
+def shard_bounds(num_tiles: int, num_shards: int, shard: int) -> tuple[int, int]:
+    """``[lo, hi)`` tile range that shard ``shard`` of ``num_shards`` owns
+    when a tile set is split into equal logical ranges of ``ceil(num_tiles
+    / num_shards)`` tiles (the JAX package's ``_shard_tiles``); the last
+    shards may be short or empty."""
+    logical = max(1, -(-num_tiles // num_shards))
+    lo = min(shard * logical, num_tiles)
+    return lo, min(lo + logical, num_tiles)
 
 
 def chunk_caps(lanes: torch.Tensor, chunk_size: int = CHUNK_SIZE) -> torch.Tensor:
@@ -271,7 +282,8 @@ class TileSet:
     num_points: int
     tile_size: int = DEFAULT_TILE_SIZE
     _device_lanes: dict = field(default_factory=dict, repr=False)
-    """The uploaded ``lane_data`` per torch device (see :meth:`device_data`)."""
+    """The uploaded ``lane_data`` per torch device, and its shards per
+    (device, num_shards, index) (see :meth:`device_data`)."""
     _upload_lock: object = field(
         default_factory=threading.Lock, repr=False, compare=False
     )
@@ -286,10 +298,14 @@ class TileSet:
         device: torch.device | str,
         *,
         stream: torch.cuda.Stream | None = None,
+        shard: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """``lane_data`` as a float32 ``(num_tiles, 8, tile_size)`` tensor
         on ``device``, uploaded once per device and cached: repeated
-        engine calls must not re-transfer the catalog.
+        engine calls must not re-transfer the catalog. With ``shard =
+        (num_shards, index)`` only the tiles of :func:`shard_bounds` are
+        uploaded, cached per device, ``num_shards`` and ``index`` (the
+        column and ring layouts of the sharded engine).
 
         To a CUDA device the lanes are copied from pinned host memory
         without blocking, on ``stream`` (a side stream, e.g. of a prefetch
@@ -301,11 +317,16 @@ class TileSet:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        key = device if shard is None else (device, *shard)
         with self._upload_lock:
-            upload = self._device_lanes.get(device)
+            upload = self._device_lanes.get(key)
             if upload is None:
-                upload = _Upload(self.lane_data, device, stream)
-                self._device_lanes[device] = upload
+                lanes = self.lane_data
+                if shard is not None:
+                    lo, hi = shard_bounds(self.num_tiles, *shard)
+                    lanes = lanes[lo:hi]
+                upload = _Upload(lanes, device, stream)
+                self._device_lanes[key] = upload
             if stream is None:
                 upload.consume_on_current_stream()
         return upload.lanes
@@ -322,9 +343,9 @@ class TileSet:
         return None if upload is None else upload.events
 
     def drop_device_data(self) -> None:
-        """Release the uploaded lanes (and with them the chunk caps the
-        kernels derived from them) on every device; they are uploaded again
-        on the next :meth:`device_data`."""
+        """Release the uploaded lanes and shards of lanes (and with them the
+        chunk caps the kernels derived from them) on every device; they are
+        uploaded again on the next :meth:`device_data`."""
         with self._upload_lock:
             self._device_lanes.clear()
 
