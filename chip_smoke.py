@@ -75,6 +75,24 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   counts on the wrong side of the edge and the audit repairs; and blocked
   ``autocorrelate(audit=True)`` against the in-memory audited run, on the
   benchmark's reference and randoms halved.
+- batch pipeline: the JAX package's setup schema and project layout,
+  through the command line's ``main`` (``python -m
+  yet_another_wizz_tpu_torch.cli``) with ``--device cuda``, at the
+  benchmark's size: the mock written as FITS (reference with randoms,
+  the unknown sample in 4 tomographic bins by quantiles of its redshift),
+  64 kmeans patches, tasks ``auto_ref`` (K1.2), ``cross_corr`` (K1.1),
+  ``estimate``, ``hist`` and ``plot``. Run A in memory; B blocked with
+  lazy catalogs (``max_resident_patches: 24``, one session tile cache);
+  C ``--resume`` of A; D ``--profile`` of A's counting tasks on a copy of
+  its project. A's pair counts equal, bit for bit, ``crosscorrelate`` /
+  ``autocorrelate`` on the project's own caches, its estimate and
+  histogram files byte for byte those written from them; bin 1's cross
+  DD on 48 slots lies within 1e-6 of the float64 oracle; B within 1e-6
+  of A; C skips every task but ``plot`` and launches nothing; D's trace
+  names K1.x and kernel B as CUDA kernels. No plain-engine call runs on
+  the card and every launch names ``cuda:0``. Where ``h5py`` is not
+  installed, the pair counts are stored through a stand-in defined here
+  (``ensure_h5py``).
 
 Beside the variants' checks it logs, for each variant of kernel A, the
 share of candidate pairs in reach of an edge, the share of chunk blocks
@@ -1999,6 +2017,543 @@ def survey_checks(card, config, launches_total, root) -> None:
             f"run; {format_stats(report['stats'])}")
 
 
+# -- the batch pipeline (the command line over the tomographic task graph) ----
+
+
+CLI_BINS = 4
+"""Tomographic bins of the unknown sample, split by quantiles of its true
+redshift (the JAX package's ``scripts/tomo_pipeline_proof.py`` default)."""
+CLI_TASKS = ["auto_ref", "cross_corr", "estimate", "hist", "plot"]
+CLI_RESIDENT = 24
+CLI_ORACLE_SLOTS = 48
+CLI_DEVICE = "cuda"
+CLI_CARD = "cuda:0"
+"""The device every launch of the phase must name (one card)."""
+CLI_SIZES = dict(
+    num_reference=NUM_REFERENCE, num_unknown=NUM_UNKNOWN, num_randoms=NUM_RANDOMS
+)
+CLI_PATCHES = NUM_PATCHES
+CLI_KERNELS = {
+    "paircount_partials": "paircount_partials_kernel",
+    "paircount_partials_binned": "paircount_partials_kernel",
+    "paircount_segment_sum": "segment_sum_kernel",
+}
+"""The launch counts the phase's runs must raise (K1.1 from ``cross_corr``,
+K1.2 from ``auto_ref``, kernel B after each), by the kernel's name in a
+profiler trace."""
+
+
+class _H5Dataset:
+    def __init__(self, value) -> None:
+        self._value = value
+
+    def __getitem__(self, key):
+        if isinstance(self._value, bytes):
+            if key != ():
+                raise KeyError(key)
+            return self._value
+        return self._value[key]
+
+
+class _H5Group:
+    def __init__(self) -> None:
+        self._items: dict = {}
+        self.attrs: dict = {}
+
+    def create_group(self, name: str) -> "_H5Group":
+        self._items[name] = group = _H5Group()
+        return group
+
+    def create_dataset(self, name: str, data=None, **_compression) -> _H5Dataset:
+        import numpy as np
+
+        value = data.encode("utf-8") if isinstance(data, str) else np.array(data)
+        self._items[name] = dataset = _H5Dataset(value)
+        return dataset
+
+    def __getitem__(self, name: str):
+        return self._items[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._items
+
+
+class _H5File(_H5Group):
+    """The part of ``h5py.File`` the port uses, stored as a pickle at the
+    same path (groups, datasets read with ``[()]`` or slices, strings as
+    bytes, ``attrs``)."""
+
+    def __init__(self, path, mode: str = "r") -> None:
+        import pickle
+
+        super().__init__()
+        self._path, self._mode = str(path), mode
+        if mode == "r":
+            with open(self._path, "rb") as f:
+                self._items, self.attrs = pickle.load(f)
+
+    def close(self) -> None:
+        import pickle
+
+        if self._mode != "r":
+            with open(self._path, "wb") as f:
+                pickle.dump((self._items, self.attrs), f)
+            self._mode = "r"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def ensure_h5py() -> str:
+    """``h5py``, or a stand-in module in ``sys.modules`` where it is not
+    installed: the pipeline stores pair counts as HDF5, and the stand-in
+    keeps the package's code path (``h5py.File``) unchanged. Returns what
+    was used."""
+    import importlib.util
+    import types
+
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        return f"h5py {h5py.__version__}"
+    module = types.ModuleType("h5py")
+    module.File = _H5File
+    sys.modules["h5py"] = module
+    return "a stand-in of chip_smoke.py (h5py is not installed)"
+
+
+def write_cli_inputs(root: str) -> dict:
+    """The benchmark's mock catalogs as FITS files (RA and DEC in degrees,
+    Z and W; written by ``tests/torch_cli_cases.py::write_fits``): the
+    reference, its randoms, and the unknown sample split into
+    :data:`CLI_BINS` tomographic bins by quantiles of its true redshift."""
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_cli_cases import write_fits
+
+    mock = generate_mock_data(**CLI_SIZES, seed=SEED)
+
+    def table(sample, select=slice(None)):
+        return dict(
+            RA=np.rad2deg(sample["ra"][select]), DEC=np.rad2deg(sample["dec"][select]),
+            Z=sample["redshifts"][select], W=sample["weights"][select],
+        )
+
+    paths = {name: os.path.join(root, f"{name}.fits") for name in ("reference", "randoms")}
+    write_fits(paths["reference"], table(mock["reference"]))
+    write_fits(paths["randoms"], table(mock["randoms"]))
+    redshifts = mock["unknown"]["redshifts"]
+    cuts = np.quantile(redshifts, np.linspace(0.0, 1.0, CLI_BINS + 1))
+    cuts[0], cuts[-1] = -np.inf, np.inf
+    paths["unknown"] = {}
+    for index in range(1, CLI_BINS + 1):
+        select = (redshifts > cuts[index - 1]) & (redshifts <= cuts[index])
+        paths["unknown"][index] = os.path.join(root, f"unknown_{index}.fits")
+        write_fits(paths["unknown"][index], table(mock["unknown"], select))
+    return paths
+
+
+def cli_setup(paths: dict, execution: dict) -> dict:
+    """The phase's setup, in the JAX package's schema."""
+    columns = dict(ra="RA", dec="DEC", redshift="Z", weight="W")
+    return dict(
+        correlation=dict(
+            scales=dict(rmin=CONFIG["rmin"], rmax=CONFIG["rmax"], unit=CONFIG["unit"]),
+            binning=dict(zmin=ZRANGE["zmin"], zmax=ZRANGE["zmax"],
+                         num_bins=ZRANGE["num_bins"]),
+        ),
+        inputs=dict(
+            reference=dict(path_data=paths["reference"], path_rand=paths["randoms"],
+                           **columns),
+            unknown=dict(path_data=dict(paths["unknown"]), **columns),
+            num_patches=CLI_PATCHES,
+        ),
+        execution=dict(execution),
+        tasks=list(CLI_TASKS),
+    )
+
+
+TASK_LINE = re.compile(r"task '(\w+)' finished after (\d+)m(\d+\.\d+)s")
+
+
+def task_seconds(log_text: str) -> dict:
+    """Seconds of each task from a project log's CLIENT lines."""
+    return {
+        name: int(minutes) * 60 + float(seconds)
+        for name, minutes, seconds in TASK_LINE.findall(log_text)
+    }
+
+
+def trace_kernel_times(path: str) -> tuple[dict, float]:
+    """Launches and milliseconds of each CUDA kernel in a Chrome trace of
+    ``torch.profiler``, by name, and the span of the trace in ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e and "ts" in e]
+    kernels: dict = {}
+    for event in events:
+        if event.get("cat") == "kernel":
+            count, ms = kernels.get(event["name"], (0, 0.0))
+            kernels[event["name"]] = (count + 1, ms + event["dur"] / 1e3)
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    return kernels, span
+
+
+class EngineSpy:
+    """Inside the ``with`` block: the devices the kernel wrappers were
+    called on, and the devices the plain engine was called on (the CPU
+    only, or never)."""
+
+    PLAIN = ("count_pairs_torch", "partial_counts_torch", "segment_sum_torch")
+
+    def __init__(self) -> None:
+        self.kernel_devices: set = set()
+        self.plain_devices: set = set()
+        self._saved: list = []
+
+    def _wrap(self, module, name: str, record: set) -> None:
+        original = getattr(module, name)
+
+        def spy(first, *args, **kwargs):
+            record.add(str(first.device))
+            return original(first, *args, **kwargs)
+
+        self._saved.append((module, name, original))
+        setattr(module, name, spy)
+
+    def __enter__(self):
+        from yet_another_wizz_tpu_torch.ops import cuda_paircount, paircount
+        from yet_another_wizz_tpu_torch.parallel import sharded
+
+        for name in ("paircount_partials", "segment_sum"):
+            self._wrap(cuda_paircount, name, self.kernel_devices)
+        for module in (paircount, cuda_paircount, sharded):
+            for name in self.PLAIN:
+                if hasattr(module, name):
+                    self._wrap(module, name, self.plain_devices)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for module, name, original in reversed(self._saved):
+            setattr(module, name, original)
+
+
+def cli_run(label: str, argv: list, *, tile_caches: list | None = None) -> dict:
+    """One run of the command line (``commandline.main``) with the launch
+    counts set to 0 just before it: its launches, the devices of the
+    launches and of any plain-engine call, its seconds, peak device and
+    host memory, and the tile caches its blocked measurements opened."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.cli.commandline import main as cli_main
+    from yet_another_wizz_tpu_torch.correlation import blocked
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+
+    original = blocked.measurement_tile_cache
+
+    def recording(*args, **kwargs):
+        context = original(*args, **kwargs)
+
+        class Recorder:
+            def __enter__(self):
+                cache = context.__enter__()
+                if tile_caches is not None:
+                    tile_caches.append(cache)
+                return cache
+
+            def __exit__(self, *exc):
+                return context.__exit__(*exc)
+
+        return Recorder()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocked.measurement_tile_cache = recording
+    try:
+        with EngineSpy() as spy, MemorySampler() as memory:
+            base = host_memory()["VmRSS"]
+            cuda_paircount.reset_launch_counts()
+            t0 = time.perf_counter()
+            code = cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    finally:
+        blocked.measurement_tile_cache = original
+    check(code == 0, f"cli {label}: the command line exited with {code}")
+    check(not spy.plain_devices - {"cpu"},
+          f"cli {label}: the plain engine ran on {sorted(spy.plain_devices)}")
+    check(spy.kernel_devices <= {CLI_CARD},
+          f"cli {label}: kernels launched on {sorted(spy.kernel_devices)}")
+    return dict(
+        launches=launches, seconds=seconds, devices=sorted(spy.kernel_devices),
+        device_peak=torch.cuda.max_memory_allocated(),
+        host_peak=memory.peak["VmRSS"], host_base=base,
+    )
+
+
+def counts_of(corr) -> dict:
+    """Pair counts and weight sums of every count type of a CorrFunc."""
+    import numpy as np
+
+    return {
+        name: (np.asarray(counts.counts.get_array()),
+               np.asarray(counts.sum_weights.get_array()))
+        for name in ("dd", "dr", "rd", "rr")
+        if (counts := getattr(corr, name)) is not None
+    }
+
+
+def same_count_arrays(ours: dict, theirs: dict) -> bool:
+    import numpy as np
+
+    return set(ours) == set(theirs) and all(
+        np.array_equal(ours[k][0], theirs[k][0]) and np.array_equal(ours[k][1], theirs[k][1])
+        for k in ours
+    )
+
+
+def relative_count_error(ours: dict, theirs: dict) -> float:
+    import numpy as np
+
+    check(set(ours) == set(theirs), "cli: count types differ")
+    return max(
+        float(np.abs(ours[k][0] - theirs[k][0]).max() / np.abs(theirs[k][0]).max())
+        for k in ours
+    )
+
+
+def cli_api_checks(card, project: str) -> dict:
+    """Run A's products against the API called on the project's own caches
+    (``Catalog(cache)``, on the card): pair counts bit for bit, the
+    estimates' and histograms' files byte for byte; bin 1's cross DD on its
+    first slots against the float64 oracle. Returns the API's CorrFuncs."""
+    import tempfile
+
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.cli.config import ProjectConfig
+    from yet_another_wizz_tpu_torch.correlation import load_corrfunc
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        autocorrelate,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.redshifts import HistData, RedshiftData
+
+    config = ProjectConfig.from_file(os.path.join(project, "pipeline.yml")).correlation
+    cache = os.path.join(project, "cache")
+    reference = Catalog(os.path.join(cache, "reference", "data"))
+    ref_rand = Catalog(os.path.join(cache, "reference", "rand"))
+    t0 = time.perf_counter()
+    api = {"auto_ref": autocorrelate(config, reference, ref_rand, device=CLI_DEVICE)[0]}
+    unknowns = {}
+    for index in range(1, CLI_BINS + 1):
+        unknowns[index] = Catalog(os.path.join(cache, f"unknown_{index}", "data"))
+        api[f"cross_{index}"] = crosscorrelate(
+            config, reference, unknowns[index], ref_rand=ref_rand, device=CLI_DEVICE
+        )[0]
+    api_seconds = time.perf_counter() - t0
+    for name, corr in api.items():
+        stored = load_corrfunc(os.path.join(project, "paircounts", f"{name}.hdf"))
+        check(same_count_arrays(counts_of(stored), counts_of(corr)),
+              f"cli: paircounts/{name}.hdf is not the API's counts")
+
+    compared = 0
+    with tempfile.TemporaryDirectory(prefix="yawt_cli_api_") as tmp:
+        sample = dict(method="jackknife", num_samples=None, estimator=None)
+        auto_data = api["auto_ref"].sample(**sample)
+        outputs = {"estimate/auto_ref": auto_data}
+        for index, unknown in unknowns.items():
+            cross_data = api[f"cross_{index}"].sample(**sample)
+            outputs[f"estimate/cross_{index}"] = cross_data
+            outputs[f"estimate/nz_est_{index}"] = RedshiftData.from_corrdata(
+                cross_data, auto_data, None
+            )
+            outputs[f"true/nz_true_{index}"] = HistData.from_catalog(unknown, config)
+        for name, data in outputs.items():
+            prefix = os.path.join(tmp, name.replace("/", "_"))
+            data.to_files(prefix)
+            for suffix in (".dat", ".smp", ".cov"):
+                with open(prefix + suffix, "rb") as ours, open(
+                    os.path.join(project, name + suffix), "rb"
+                ) as theirs:
+                    check(ours.read() == theirs.read(),
+                          f"cli: {name}{suffix} is not the API's file")
+                compared += 1
+
+    catalogs = (reference, unknowns[1], ref_rand)
+    links = PatchLinkage.from_catalogs(config, *catalogs)
+    slots = np.arange(CLI_ORACLE_SLOTS)
+    _, oracle, pairs, t_oracle = oracle_counts(links, catalogs, "cross DD", slots)
+    oracle_scale = links.edges.counts_to_scales(oracle)[0]
+    ours = main_path_counts(api["cross_1"].dd, pairs, False)[slots]
+    err = np.abs(ours - oracle_scale).max() / np.abs(oracle_scale).max()
+    log(f"[{card}] cli A: {len(api)} pair-count files bitwise the API's on the "
+        f"project's caches ({api_seconds:.2f} s of API calls), {compared} "
+        f"estimate and histogram files byte for byte; bin 1 cross DD on "
+        f"{CLI_ORACLE_SLOTS} slots vs the float64 oracle ({t_oracle:.1f} s): "
+        f"max|err|/max {err:.3e}")
+    check(err <= RTOL, "cli: bin 1 cross DD off the float64 oracle")
+    return api
+
+
+def report_run(card: str, label: str, run: dict, project: str) -> None:
+    """One line per run: seconds, per-task seconds from the project log,
+    launches and their devices, peak device and host memory."""
+    with open(os.path.join(project, "pipeline.log")) as f:
+        seconds = task_seconds(f.read())
+    tasks = ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+    log(f"[{card}] cli {label}: {run['seconds']:.2f} s through main(), tasks {tasks}; "
+        f"launches {run['launches']} on {run['devices']}; peak device memory "
+        f"{run['device_peak'] / 2**20:.1f} MiB; host VmRSS {run['host_base'] / 2**30:.3f}"
+        f" -> {run['host_peak'] / 2**30:.3f} GiB at the peak")
+
+
+def cli_phase(card: str, launches_total: dict) -> None:
+    """The pipeline's tomographic task graph through its command line
+    (``python -m yet_another_wizz_tpu_torch.cli``'s ``main``) on the card,
+    at the benchmark's size: runs A (in memory), B (blocked, lazy
+    catalogs), C (``--resume`` of A) and D (``--profile`` of A's counting
+    tasks on a copy of A's project), with the checks of each."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    log(f"[{card}] packages: " + ", ".join(
+        f"{name} {'present' if importlib.util.find_spec(name) else 'absent'}"
+        for name in ("yaml", "h5py", "matplotlib", "pyarrow")
+    ))
+    log(f"cli: pair counts are stored through {ensure_h5py()}")
+    from yet_another_wizz_tpu_torch.correlation import load_corrfunc
+    from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+    from yet_another_wizz_tpu_torch.utils.plotting import PLOTTING_ENABLED
+
+    root = tempfile.mkdtemp(prefix="yawt_cli_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_cli_inputs(root)
+        size = sum(os.path.getsize(p) for p in (
+            paths["reference"], paths["randoms"], *paths["unknown"].values()))
+        log(f"cli inputs: {size / 1e6:.1f} MB of FITS in "
+            f"{time.perf_counter() - t0:.2f} s ({CLI_BINS} tomographic bins)")
+        setups, projects = {}, {}
+        for label, execution in (
+            ("A", {}), ("B", dict(max_resident_patches=CLI_RESIDENT, lazy=True))
+        ):
+            setups[label] = os.path.join(root, f"setup_{label}.yml")
+            with open(setups[label], "w") as f:
+                yaml.safe_dump(cli_setup(paths, execution), f)
+            projects[label] = os.path.join(root, f"project_{label}")
+        runs = {}
+
+        log("-- cli A: in memory")
+        runs["A"] = cli_run("A", [projects["A"], setups["A"], "--device", CLI_DEVICE,
+                                  "--quiet"])
+        report_run(card, "A", runs["A"], projects["A"])
+        cli_api_checks(card, projects["A"])
+
+        log(f"-- cli B: blocked (max_resident_patches {CLI_RESIDENT}), lazy catalogs")
+        caches: list = []
+        runs["B"] = cli_run("B", [projects["B"], setups["B"], "--device", CLI_DEVICE,
+                                  "--quiet"], tile_caches=caches)
+        report_run(card, "B", runs["B"], projects["B"])
+        check(len(caches) == 1, f"cli B: {len(caches)} session tile caches, not one")
+        log(f"[{card}] cli B: session tile cache {caches[0].hits} hits, "
+            f"{caches[0].misses} rebuilds")
+        check(caches[0].hits > 0, "cli B: the session tile cache was never hit")
+        names = ["auto_ref", *(f"cross_{i}" for i in range(1, CLI_BINS + 1))]
+        counts_err = max(relative_count_error(
+            counts_of(load_corrfunc(os.path.join(projects["B"], "paircounts", f"{n}.hdf"))),
+            counts_of(load_corrfunc(os.path.join(projects["A"], "paircounts", f"{n}.hdf"))),
+        ) for n in names)
+        nz_err = 0.0
+        for index in range(1, CLI_BINS + 1):
+            a, b = (RedshiftData.from_files(os.path.join(
+                projects[k], "estimate", f"nz_est_{index}")) for k in "AB")
+            for field in ("data", "samples", "covariance"):
+                desired = getattr(a, field)
+                nz_err = max(nz_err, float(
+                    np.abs(getattr(b, field) - desired).max() / np.abs(desired).max()))
+            for suffix in (".dat", ".smp", ".cov"):
+                name = os.path.join("true", f"nz_true_{index}{suffix}")
+                with open(os.path.join(projects["A"], name), "rb") as fa, open(
+                    os.path.join(projects["B"], name), "rb"
+                ) as fb:
+                    check(fa.read() == fb.read(), f"cli B: {name} differs from A's")
+        log(f"[{card}] cli B vs A: counts max|err|/max {counts_err:.3e}, n(z) "
+            f"{nz_err:.3e}, histograms bitwise")
+        check(counts_err <= RTOL, "cli B: counts off the in-memory run")
+        check(nz_err <= RTOL, "cli B: n(z) off the in-memory run")
+
+        log("-- cli C: --resume of A")
+        runs["C"] = cli_run("C", [projects["A"], "--resume", "--device", CLI_DEVICE,
+                                  "--quiet"])
+        with open(os.path.join(projects["A"], "pipeline.log")) as f:
+            last = f.read().rsplit("running 1 task(s)", 1)
+        check(len(last) == 2 and re.findall(r"running task '(\w+)'", last[1]) == ["plot"],
+              "cli C: the resumed run did not skip every task but 'plot'")
+        check(not runs["C"]["launches"], f"cli C: launches {runs['C']['launches']}")
+        log(f"[{card}] cli C: {runs['C']['seconds']:.2f} s, every task skipped but "
+            "'plot' (regenerated on every run, as in the JAX package), no launch")
+
+        log("-- cli D: --profile, A's counting tasks again on a copy of its project")
+        projects["D"] = os.path.join(root, "project_D")
+        shutil.copytree(projects["A"], projects["D"], symlinks=True)
+        for sub in ("paircounts", "estimate", "plots"):
+            shutil.rmtree(os.path.join(projects["D"], sub), ignore_errors=True)
+        runs["D"] = cli_run("D", [projects["D"], "--resume", "--profile", "--device",
+                                  CLI_DEVICE, "--quiet"])
+        for name in names:
+            check(same_count_arrays(
+                counts_of(load_corrfunc(os.path.join(projects["D"], "paircounts", f"{name}.hdf"))),
+                counts_of(load_corrfunc(os.path.join(projects["A"], "paircounts", f"{name}.hdf"))),
+            ), f"cli D: {name} differs from A's")
+        kernels, span = trace_kernel_times(
+            os.path.join(projects["D"], "profile", "trace.json"))
+        busy = sum(ms for _, ms in kernels.values())
+        for launch_name, kernel in CLI_KERNELS.items():
+            traced = sum(n for name, (n, _) in kernels.items() if kernel in name)
+            check(traced > 0, f"cli D: no {kernel} in the profiler trace")
+        for kernel in sorted(set(CLI_KERNELS.values())):
+            n = sum(c for name, (c, _) in kernels.items() if kernel in name)
+            ms = sum(t for name, (_, t) in kernels.items() if kernel in name)
+            log(f"[{card}] cli D trace: {kernel} {n} launches, {ms:.3f} ms")
+        log(f"[{card}] cli D: {runs['D']['seconds']:.2f} s profiled, launches "
+            f"{runs['D']['launches']}; counts bitwise A's; the trace spans "
+            f"{span:.1f} ms with {busy:.3f} ms of kernels ({len(kernels)} kernel "
+            f"names): the card is busy {100 * busy / span:.2f} % of it")
+
+        for label in ("A", "B", "D"):
+            launches = runs[label]["launches"]
+            for name in CLI_KERNELS:
+                check(launches.get(name, 0) > 0, f"cli {label}: {name} never launched")
+            for name, count in launches.items():
+                launches_total[name] = launches_total.get(name, 0) + count
+        log(f"[{card}] cli launches per run: " + "; ".join(
+            f"{k} {runs[k]['launches'] or 'none'}" for k in "ABCD"))
+        plots = sorted(os.listdir(os.path.join(projects["A"], "plots"))) if os.path.isdir(
+            os.path.join(projects["A"], "plots")) else []
+        if PLOTTING_ENABLED:
+            check(plots == ["auto_ref.png", "nz_estimate.png"], f"cli A: plots {plots}")
+            log(f"[{card}] cli plots written: {', '.join(plots)}")
+        else:
+            check(not plots, "cli A: plots without matplotlib")
+            log(f"[{card}] cli plots: matplotlib absent, the plot task logged a "
+                "warning and skipped")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     card = environment()
     # every phase but the sharded ones counts on one card: pin the automatic
@@ -2279,6 +2834,11 @@ def main() -> None:
 
     log("-- survey path (blocked crosscorrelate over disk caches, 7M rows)")
     survey_path(card, config, launches_total)
+
+    log("-- batch pipeline: the command line over the tomographic task graph")
+    t0 = time.perf_counter()
+    cli_phase(card, launches_total)
+    log(f"batch pipeline phase {time.perf_counter() - t0:.1f} s")
 
     # K1.5 is K1.1 / K1.2 on signed weights: its launches are those of the
     # scalar path (half of them the kappa counts, half the nn normalisation)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from numpy.testing import assert_allclose, assert_array_equal
+from torch_cli_cases import write_fits
 
 from yet_another_wizz_tpu.catalog import Catalog as JaxCatalog
 from yet_another_wizz_tpu.catalog import LazyCatalog as JaxLazyCatalog
@@ -137,38 +138,6 @@ def test_from_random_equals_jax(caches):
         patch_centers=caches["jax"].get_centers(),
     )
     assert_same_catalog(ours, theirs)
-
-
-def write_fits(path, columns):
-    """A FITS binary table of float64 columns, written by hand."""
-
-    def card(key, value):
-        if isinstance(value, str):
-            return f"{key:<8}= '{value}'".ljust(80)
-        if isinstance(value, bool):
-            value = "T" if value else "F"
-        return f"{key:<8}= {value!s:>20}".ljust(80)
-
-    def block(cards):
-        text = "".join(cards) + f"{'END':<80}"
-        return (text + " " * (-len(text) % 2880)).encode("ascii")
-
-    names = list(columns)
-    data = np.zeros(len(columns[names[0]]), dtype=[(n, ">f8") for n in names])
-    for name in names:
-        data[name] = columns[name]
-    table = [
-        card("XTENSION", "BINTABLE"), card("BITPIX", 8), card("NAXIS", 2),
-        card("NAXIS1", data.dtype.itemsize), card("NAXIS2", len(data)),
-        card("PCOUNT", 0), card("GCOUNT", 1), card("TFIELDS", len(names)),
-    ]
-    for i, name in enumerate(names, 1):
-        table += [card(f"TTYPE{i}", name), card(f"TFORM{i}", "D")]
-    raw = data.tobytes()
-    with open(path, "wb") as f:
-        f.write(block([card("SIMPLE", True), card("BITPIX", 8), card("NAXIS", 0)]))
-        f.write(block(table))
-        f.write(raw + b"\x00" * (-len(raw) % 2880))
 
 
 FILE_COLUMNS = dict(

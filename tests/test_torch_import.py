@@ -45,6 +45,14 @@ SLICE_MODULES = [
     "yet_another_wizz_tpu_torch.catalog.lazy",
     "yet_another_wizz_tpu_torch.catalog.tilestore",
     "yet_another_wizz_tpu_torch.correlation.blocked",
+    "yet_another_wizz_tpu_torch.utils.plotting",
+    "yet_another_wizz_tpu_torch.cli",
+    "yet_another_wizz_tpu_torch.cli.config",
+    "yet_another_wizz_tpu_torch.cli.directory",
+    "yet_another_wizz_tpu_torch.cli.tasks",
+    "yet_another_wizz_tpu_torch.cli.pipeline",
+    "yet_another_wizz_tpu_torch.cli.plotting",
+    "yet_another_wizz_tpu_torch.cli.commandline",
 ]
 
 BLOCKED_IMPORT = """

@@ -23,7 +23,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from yet_another_wizz_tpu_torch.binning import Binning
-from yet_another_wizz_tpu_torch.options import CovKind, ResamplingMethod
+from yet_another_wizz_tpu_torch.options import CovKind, PlotStyle, ResamplingMethod
 from yet_another_wizz_tpu_torch.utils import format_float_fixed_width
 from yet_another_wizz_tpu_torch.utils.abc import AsciiSerializable, BinwiseData
 
@@ -257,6 +257,61 @@ class SampledData(BinwiseData):
                 raise ValueError("number of samples do not agree")
             return False
         return True
+
+    _default_plot_style = PlotStyle.point
+
+    def plot(
+        self,
+        *,
+        color=None,
+        label: str | None = None,
+        style: PlotStyle | str | None = None,
+        ax=None,
+        xoffset: float = 0.0,
+        plot_kwargs: dict | None = None,
+        indicate_zero: bool = False,
+        scale_dz: bool = False,
+    ):
+        """Plot data with uncertainties against redshift (styles: point with
+        errorbars, line, or step with shaded errors)."""
+        from yet_another_wizz_tpu_torch.utils import plotting
+
+        style = PlotStyle(style or self._default_plot_style)
+        plot_kwargs = dict(plot_kwargs or {})
+        plot_kwargs.update(dict(color=color, label=label))
+
+        x = (
+            self.binning.edges + xoffset
+            if style == PlotStyle.step
+            else self.binning.mids + xoffset
+        )
+        y = self.data.astype(np.float64).copy()
+        yerr = self.error
+        if scale_dz:
+            dz = self.binning.dz
+            y *= dz
+            yerr = yerr * dz
+
+        if indicate_zero:
+            ax = plotting.zero_line(ax=ax)
+
+        plot_fn = {
+            PlotStyle.point: plotting.point_uncertainty,
+            PlotStyle.line: plotting.line_uncertainty,
+            PlotStyle.step: plotting.step_uncertainty,
+        }[style]
+        return plot_fn(x, y, yerr, ax=ax, **plot_kwargs)
+
+    def plot_corr(self, *, redshift: bool = False, cmap: str = "RdBu_r", ax=None):
+        """Plot the correlation matrix of the samples."""
+        from yet_another_wizz_tpu_torch.utils import plotting
+
+        return plotting.correlation_matrix(
+            self.correlation,
+            ticks=self.binning.mids if redshift else None,
+            cmap=cmap,
+            ax=ax,
+        )
 
 
 class CorrData(AsciiSerializable, SampledData):

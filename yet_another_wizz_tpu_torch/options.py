@@ -2,8 +2,8 @@
 
 Capability parity with the reference ``yaw.options`` module
 (yaw/options.py:25-208): fixed-choice string parameters
-for bin closure, pair-count modes, binning generators, covariance kinds
-and separation units.
+for bin closure, pair-count modes, binning generators, covariance kinds,
+plot styles and separation units.
 
 Implemented as plain ``str``-subclass enums (no external ``strenum``
 dependency).
@@ -20,6 +20,7 @@ __all__ = [
     "CountMode",
     "CovKind",
     "NotSet",
+    "PlotStyle",
     "ResamplingMethod",
     "Unit",
     "get_options",
@@ -100,6 +101,14 @@ class ResamplingMethod(StrEnum):
 
     jackknife = "jackknife"
     bootstrap = "bootstrap"
+
+
+class PlotStyle(StrEnum):
+    """Style for plotting binned data with uncertainties."""
+
+    point = "point"
+    line = "line"
+    step = "step"
 
 
 class Unit(StrEnum):

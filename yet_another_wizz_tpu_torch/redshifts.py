@@ -27,7 +27,7 @@ from yet_another_wizz_tpu_torch.correlation.paircounts import (
     DEFAULT_NUM_BOOTSTRAP,
     bootstrap_multiplicities,
 )
-from yet_another_wizz_tpu_torch.options import ResamplingMethod
+from yet_another_wizz_tpu_torch.options import PlotStyle, ResamplingMethod
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -176,6 +176,8 @@ class HistData(CorrData):
         n = self.num_bins
         return f"n(z) histogram covariance matrix ({n}x{n})"
 
+    _default_plot_style = PlotStyle.step
+
     def normalised(self, *args, **kwargs) -> Self:
         """Rescale the histogram to a probability density (any arguments
         are accepted and ignored, for interface compatibility)."""
@@ -277,6 +279,8 @@ class RedshiftData(CorrData):
     def _description_covariance(self) -> str:
         n = self.num_bins
         return f"n(z) estimate covariance matrix ({n}x{n})"
+
+    _default_plot_style = PlotStyle.point
 
     def normalised(self, target: CorrData | None = None) -> Self:
         """Normalise to unit integral, or fit a relative normalisation to a
