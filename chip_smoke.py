@@ -91,8 +91,18 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   of A; C skips every task but ``plot`` and launches nothing; D's trace
   names K1.x and kernel B as CUDA kernels. No plain-engine call runs on
   the card and every launch names ``cuda:0``. Where ``h5py`` is not
-  installed, the pair counts are stored through a stand-in defined here
-  (``ensure_h5py``).
+  installed, the pair counts are stored through the stand-in of
+  ``scripts/torch_h5py_standin.py``.
+- survey-scale proofs, at a reduced size, each script in a subprocess on
+  the card: ``scripts/torch_survey_proof.py`` at 4M rows (Parquet
+  streamed into caches in 2, 4 and 5 reader rounds, 128 kmeans patches,
+  blocked ``crosscorrelate(max_resident_patches=24)`` on ``LazyCatalog``,
+  the float64 oracle on a stride-16 downsample) and
+  ``scripts/torch_tomo_pipeline_proof.py`` at 1M rows (the command line
+  over 4 tomographic bins from Parquet, 96 patches, 24 resident, lazy,
+  against a stride-8 downsample). Every gate of each script holds, K1.1
+  and kernel B launched once per survey block pair, K1.1, K1.2 and kernel
+  B in both pipeline runs, and the plain engine never on the card.
 
 Beside the variants' checks it logs, for each variant of kernel A, the
 share of candidate pairs in reach of an edge, the share of chunk blocks
@@ -122,6 +132,18 @@ import statistics
 import subprocess
 import sys
 import time
+
+# the h5py stand-in and the host-memory and engine spies are shared with the
+# survey-scale proof scripts
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+from torch_h5py_standin import ensure_h5py  # noqa: E402
+from torch_proof_common import (  # noqa: E402
+    MEMORY_KINDS,
+    EngineSpy,
+    MemorySampler,
+    host_memory,
+)
+
 
 NUM_REFERENCE = 200_000
 NUM_UNKNOWN = 500_000
@@ -1562,56 +1584,6 @@ def two_process_phase(card, config, catalogs) -> None:
 # -- survey path (blocked, out of core) ----------------------------------------
 
 
-MEMORY_KINDS = ("VmRSS", "RssAnon", "RssFile", "RssShmem")
-"""The resident-memory lines of ``/proc/self/status`` read (``VmRSS``: all
-of it; where the kernel reports them, ``RssAnon``: heap and pinned buffers,
-``RssFile``: mapped files such as the CUDA libraries' kernels,
-``RssShmem``)."""
-
-
-def host_memory() -> dict:
-    """This process's resident memory now, in bytes, by the kinds of
-    :data:`MEMORY_KINDS` its ``/proc/self/status`` reports; ``VmRSS`` from
-    ``/proc/self/statm`` when the status has no such line."""
-    sizes = {}
-    with open("/proc/self/status") as f:
-        for line in f:
-            key, _, value = line.partition(":")
-            if key in MEMORY_KINDS:
-                sizes[key] = int(value.split()[0]) * 1024
-    if "VmRSS" not in sizes:
-        with open("/proc/self/statm") as f:
-            sizes["VmRSS"] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    return sizes
-
-
-class MemorySampler:
-    """The largest :func:`host_memory` of each kind seen by a thread that
-    samples it every 20 ms while the ``with`` block runs."""
-
-    def __init__(self) -> None:
-        import threading
-
-        self.peak = host_memory()
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._sample, daemon=True)
-
-    def _sample(self) -> None:
-        while not self._stop.wait(0.02):
-            for key, value in host_memory().items():
-                self.peak[key] = max(self.peak.get(key, 0), value)
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        self._thread.join(timeout=5)
-        for key, value in host_memory().items():
-            self.peak[key] = max(self.peak.get(key, 0), value)
-
-
 def write_survey_caches(root: str) -> None:
     """The survey's three catalog caches under ``root``: mocks, 96 kmeans
     patches on the reference, HEALPix-mask randoms drawing the reference's
@@ -2043,88 +2015,6 @@ K1.2 from ``auto_ref``, kernel B after each), by the kernel's name in a
 profiler trace."""
 
 
-class _H5Dataset:
-    def __init__(self, value) -> None:
-        self._value = value
-
-    def __getitem__(self, key):
-        if isinstance(self._value, bytes):
-            if key != ():
-                raise KeyError(key)
-            return self._value
-        return self._value[key]
-
-
-class _H5Group:
-    def __init__(self) -> None:
-        self._items: dict = {}
-        self.attrs: dict = {}
-
-    def create_group(self, name: str) -> "_H5Group":
-        self._items[name] = group = _H5Group()
-        return group
-
-    def create_dataset(self, name: str, data=None, **_compression) -> _H5Dataset:
-        import numpy as np
-
-        value = data.encode("utf-8") if isinstance(data, str) else np.array(data)
-        self._items[name] = dataset = _H5Dataset(value)
-        return dataset
-
-    def __getitem__(self, name: str):
-        return self._items[name]
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._items
-
-
-class _H5File(_H5Group):
-    """The part of ``h5py.File`` the port uses, stored as a pickle at the
-    same path (groups, datasets read with ``[()]`` or slices, strings as
-    bytes, ``attrs``)."""
-
-    def __init__(self, path, mode: str = "r") -> None:
-        import pickle
-
-        super().__init__()
-        self._path, self._mode = str(path), mode
-        if mode == "r":
-            with open(self._path, "rb") as f:
-                self._items, self.attrs = pickle.load(f)
-
-    def close(self) -> None:
-        import pickle
-
-        if self._mode != "r":
-            with open(self._path, "wb") as f:
-                pickle.dump((self._items, self.attrs), f)
-            self._mode = "r"
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
-
-
-def ensure_h5py() -> str:
-    """``h5py``, or a stand-in module in ``sys.modules`` where it is not
-    installed: the pipeline stores pair counts as HDF5, and the stand-in
-    keeps the package's code path (``h5py.File``) unchanged. Returns what
-    was used."""
-    import importlib.util
-    import types
-
-    if importlib.util.find_spec("h5py") is not None:
-        import h5py
-
-        return f"h5py {h5py.__version__}"
-    module = types.ModuleType("h5py")
-    module.File = _H5File
-    sys.modules["h5py"] = module
-    return "a stand-in of chip_smoke.py (h5py is not installed)"
-
-
 def write_cli_inputs(root: str) -> dict:
     """The benchmark's mock catalogs as FITS files (RA and DEC in degrees,
     Z and W; written by ``tests/torch_cli_cases.py::write_fits``): the
@@ -2202,45 +2092,6 @@ def trace_kernel_times(path: str) -> tuple[dict, float]:
             kernels[event["name"]] = (count + 1, ms + event["dur"] / 1e3)
     span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
     return kernels, span
-
-
-class EngineSpy:
-    """Inside the ``with`` block: the devices the kernel wrappers were
-    called on, and the devices the plain engine was called on (the CPU
-    only, or never)."""
-
-    PLAIN = ("count_pairs_torch", "partial_counts_torch", "segment_sum_torch")
-
-    def __init__(self) -> None:
-        self.kernel_devices: set = set()
-        self.plain_devices: set = set()
-        self._saved: list = []
-
-    def _wrap(self, module, name: str, record: set) -> None:
-        original = getattr(module, name)
-
-        def spy(first, *args, **kwargs):
-            record.add(str(first.device))
-            return original(first, *args, **kwargs)
-
-        self._saved.append((module, name, original))
-        setattr(module, name, spy)
-
-    def __enter__(self):
-        from yet_another_wizz_tpu_torch.ops import cuda_paircount, paircount
-        from yet_another_wizz_tpu_torch.parallel import sharded
-
-        for name in ("paircount_partials", "segment_sum"):
-            self._wrap(cuda_paircount, name, self.kernel_devices)
-        for module in (paircount, cuda_paircount, sharded):
-            for name in self.PLAIN:
-                if hasattr(module, name):
-                    self._wrap(module, name, self.plain_devices)
-        return self
-
-    def __exit__(self, *exc) -> None:
-        for module, name, original in reversed(self._saved):
-            setattr(module, name, original)
 
 
 def cli_run(label: str, argv: list, *, tile_caches: list | None = None) -> dict:
@@ -2554,6 +2405,121 @@ def cli_phase(card: str, launches_total: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the survey-scale proofs at a reduced size --------------------------------
+
+
+PROOF_SURVEY_ARGS = [
+    "--rows", "4000000", "--patches", "128", "--resident", "24", "--downsample", "16",
+    "--ingest-chunk", "400000", "--parquet-chunk", "200000",
+]
+"""``scripts/torch_survey_proof.py`` at a tenth of its rows: 128 patches, 24
+resident, the 40M-row run's ingestion chunk and row group cut in the same
+proportion, so every catalog takes as many reader rounds (2, 4 and 5)."""
+PROOF_TOMO_ARGS = [
+    "--rows", "1000000", "--bins", "4", "--patches", "96", "--resident", "24",
+    "--downsample", "8",
+]
+"""``scripts/torch_tomo_pipeline_proof.py`` at 1M rows: 4 bins, 96 patches,
+24 resident, lazy catalogs; the downsample keeps every eighth row."""
+PROOF_TIMEOUT = 450
+
+
+def run_proof(name: str, script: str, args: list, root: str) -> dict:
+    """One proof script in a subprocess, on the card; its record (written
+    only when every gate of the script passed)."""
+    out = os.path.join(root, f"{name}.json")
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "scripts", script),
+         *args, "--device", "cuda", "--workdir", os.path.join(root, name), "--out", out],
+        capture_output=True, text=True, timeout=PROOF_TIMEOUT, check=False,
+    )
+    seconds = time.perf_counter() - t0
+    check(done.returncode == 0 and os.path.exists(out),
+          f"proof {name} failed ({done.returncode}):\n{done.stderr[-4000:]}")
+    with open(out) as f:
+        record = json.load(f)
+    record["script_s"] = seconds
+    return record
+
+
+def proof_phase(card: str, launches_total: dict) -> None:
+    """Both survey-scale proofs (``scripts/torch_survey_proof.py``,
+    ``scripts/torch_tomo_pipeline_proof.py``) at a reduced size, each in a
+    subprocess on the card: every gate of each script, and besides that
+    their kernels launched (K1.1 and kernel B once per block pair of the
+    survey; K1.1, K1.2 and kernel B in both pipeline runs), the plain
+    engine never ran on the card, and every survey catalog took at least
+    two reader rounds."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="yawt_proofs_")
+    try:
+        survey = run_proof("survey", "torch_survey_proof.py", PROOF_SURVEY_ARGS, root)
+        prep, meas, cross = survey["prepare"], survey["measure"], survey["crosscheck"]
+        rounds = {k: v["rounds"] for k, v in prep["ingestion_rounds"].items()}
+        check(min(rounds.values()) >= 2, f"proof survey: reader rounds {rounds}")
+        check(cross["oracle_max_rel_err"] < RTOL and meas["nz_finite"]
+              and survey["nz_full_vs_downsample_chi2"] < 3.0,
+              "proof survey: a gate of the script does not hold in its record")
+        check((meas["num_patches"], meas["max_resident_patches"]) == (128, 24),
+              "proof survey: not 128 patches with 24 resident")
+        blocks = meas["num_block_pairs"]
+        check(meas["launches"].get("paircount_partials") == blocks
+              == meas["launches"].get("paircount_segment_sum") and blocks > 0,
+              f"proof survey: launches {meas['launches']} against {blocks} block pairs")
+        check(not [d for d in meas["plain_engine_devices"] + cross["plain_engine_devices"]
+                   if d.startswith("cuda")], "proof survey: the plain engine ran on the card")
+        warm = meas["host_memory"]["warm"]
+        log(f"[{card}] proof survey ({meas['rows']} rows, {meas['num_patches']} patches, "
+            f"{meas['max_resident_patches']} resident, Parquet rounds {rounds}): script "
+            f"{survey['script_s']:.1f} s (generate {prep['generate_s']} s, Parquet "
+            f"{prep['parquet_write_s']} s, ingest {prep['ingest_s']} s); cold "
+            f"{meas['cold_wall_s']} s, warm {meas['warm_wall_s']} s over {blocks} block "
+            f"pairs, {meas['candidate_pairs']:.4e} candidate pairs; engine kernels "
+            f"{meas['engine_kernel_ms']} ms; launches {meas['launches']}; peak device "
+            f"memory {meas['device_memory_stats']['max_memory_allocated'] / 2**20:.1f} MiB; "
+            f"host VmRSS growth {warm['bytes_per_row']} B/row (warm), "
+            f"{meas['host_memory']['cold']['bytes_per_row']} B/row (cold); tile store "
+            f"{meas['tile_store']['stored_bytes'] / 1e6:.1f} MB, reads {meas['store_reads']}; "
+            f"oracle on the 1/{cross['downsample_stride']} downsample "
+            f"{cross['oracle_max_rel_err']:.3e} ({cross['oracle_s']} s), chi2 "
+            f"{survey['nz_full_vs_downsample_chi2']}")
+
+        tomo = run_proof("tomo", "torch_tomo_pipeline_proof.py", PROOF_TOMO_ARGS, root)
+        check(all(b["nz_finite"] and b["peak_bin_has_true_support"]
+                  for b in tomo["bins"].values())
+              and tomo["mean_full_vs_downsample_chi2"] < 3.0,
+              "proof tomo: a gate of the script does not hold in its record")
+        for key in ("pipeline", "downsample_pipeline"):
+            run = tomo[key]
+            for kernel in ("paircount_partials", "paircount_partials_binned",
+                           "paircount_segment_sum"):
+                check(run["launches"].get(kernel, 0) > 0, f"proof tomo {key}: no {kernel}")
+            check(not [d for d in run["plain_engine_devices"] if d.startswith("cuda")],
+                  f"proof tomo {key}: the plain engine ran on the card")
+            check(run["tile_cache"]["hits"] > 0, f"proof tomo {key}: no tile cache hit")
+        run = tomo["pipeline"]
+        log(f"[{card}] proof tomo ({tomo['total_rows_requested']} rows, "
+            f"{tomo['num_tomographic_bins']} bins, {tomo['num_patches']} patches, "
+            f"{tomo['max_resident_patches']} resident, lazy): script "
+            f"{tomo['script_s']:.1f} s; full run {run['wall_s']} s, tasks "
+            f"{run['task_walls_s']}, bins {run['bin_walls_s']}; launches {run['launches']}; "
+            f"tile cache {run['tile_cache']}; peak device memory "
+            f"{run['device_peak_bytes'] / 2**20:.1f} MiB; host VmRSS growth "
+            f"{run['host_memory']['bytes_per_row']} B/row; pair counts through "
+            f"{run['pair_counts_stored_through']}; mean chi2 "
+            f"{tomo['mean_full_vs_downsample_chi2']}")
+        for counted in (meas["launches"], tomo["pipeline"]["launches"],
+                        tomo["downsample_pipeline"]["launches"]):
+            for name, count in counted.items():
+                launches_total[name] = launches_total.get(name, 0) + count
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     card = environment()
     # every phase but the sharded ones counts on one card: pin the automatic
@@ -2839,6 +2805,11 @@ def main() -> None:
     t0 = time.perf_counter()
     cli_phase(card, launches_total)
     log(f"batch pipeline phase {time.perf_counter() - t0:.1f} s")
+
+    log("-- survey-scale proofs at a reduced size (4M-row survey, 1M-row pipeline)")
+    t0 = time.perf_counter()
+    proof_phase(card, launches_total)
+    log(f"[{card}] proof phase {time.perf_counter() - t0:.1f} s")
 
     # K1.5 is K1.1 / K1.2 on signed weights: its launches are those of the
     # scalar path (half of them the kappa counts, half the nn normalisation)

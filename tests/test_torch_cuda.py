@@ -549,3 +549,52 @@ def test_sharded_on_repeated_card_matches_single_device(device, data_sharding):
     np.testing.assert_allclose(
         sharded, single, rtol=1e-6, atol=1e-6 * np.abs(single).max()
     )
+
+
+def test_parquet_ingestion_in_two_rounds_on_the_card(device, tmp_path, monkeypatch):
+    """A chunked Parquet file streamed into a cache in two reader rounds,
+    with the patch assignment on the card (its row threshold set to 0),
+    equals the single-round ingestion bit for bit, patch by patch, and the
+    card holds no more memory after the second round than after the first."""
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from yet_another_wizz_tpu_torch.catalog import Catalog, ingest
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+    from yet_another_wizz_tpu_torch.ops import kmeans
+
+    mock = generate_mock_data(num_reference=20_000, num_unknown=1, num_randoms=1, seed=5)
+    sample = mock["reference"]
+    path = tmp_path / "sample.pqt"
+    with pq.ParquetWriter(path, pa.schema([(k, pa.float64()) for k in ("ra", "dec", "z", "w")])) as writer:
+        for start in range(0, 20_000, 5_000):  # four row groups
+            part = slice(start, start + 5_000)
+            writer.write_table(pa.table(dict(
+                ra=np.rad2deg(sample["ra"][part]), dec=np.rad2deg(sample["dec"][part]),
+                z=sample["redshifts"][part], w=sample["weights"][part],
+            )))
+    centers = Catalog.from_arrays(
+        sample["ra"], sample["dec"], degrees=False, patch_num=16, device=device
+    ).get_centers()
+    monkeypatch.setattr(kmeans, "DEVICE_ASSIGN_THRESHOLD", 0)
+    rounds, held = [], []
+    original = ingest._chunk_patch_ids
+
+    def counted(chunk, centers_xyz, chunk_device):
+        out = original(chunk, centers_xyz, chunk_device)
+        torch.cuda.synchronize()
+        rounds.append(len(chunk))
+        held.append(torch.cuda.memory_allocated())
+        return out
+
+    monkeypatch.setattr(ingest, "_chunk_patch_ids", counted)
+    columns = dict(ra_name="ra", dec_name="dec", redshift_name="z", weight_name="w")
+    for name, chunksize in (("two", 10_000), ("one", None)):
+        Catalog.from_file(tmp_path / name, path, patch_centers=centers, streaming=True,
+                          chunksize=chunksize, device=device, **columns)
+    assert rounds == [10_000, 10_000, 20_000]
+    assert held[1] <= held[0]
+    for pid in range(16):
+        for file in ("data.bin", "meta.yml"):
+            two = (tmp_path / "two" / f"patch_{pid}" / file).read_bytes()
+            one = (tmp_path / "one" / f"patch_{pid}" / file).read_bytes()
+            assert two == one, (pid, file)

@@ -55,6 +55,16 @@ SLICE_MODULES = [
     "yet_another_wizz_tpu_torch.cli.commandline",
 ]
 
+SCRIPT_MODULES = [
+    "torch_h5py_standin",
+    "torch_proof_common",
+    "torch_proof_edge_pairs",
+    "torch_survey_proof",
+    "torch_tomo_pipeline_proof",
+]
+"""The port's scripts under ``scripts/`` that the tests import (the proofs
+and their ``h5py`` stand-in)."""
+
 BLOCKED_IMPORT = """
 import importlib, sys
 sys.modules["jax"] = None
@@ -64,6 +74,7 @@ sys.modules["h5py"] = None
 sys.modules["yaml"] = None
 sys.modules["pandas"] = None
 sys.modules["pyarrow"] = None
+sys.path.insert(0, "scripts")
 for name in sys.argv[1:]:
     importlib.import_module(name)
 loaded = sorted(
@@ -81,7 +92,7 @@ print(loaded)
 def test_port_imports_without_jax():
     root = Path(__file__).resolve().parents[1]
     result = subprocess.run(
-        [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES],
+        [sys.executable, "-c", BLOCKED_IMPORT, *SLICE_MODULES, *SCRIPT_MODULES],
         cwd=root, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr
