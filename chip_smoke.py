@@ -67,14 +67,17 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
 - survey, sharded: the survey's blocked ``crosscorrelate`` under ``ring``
   on four shards, twice, against its single-device counts (1e-6) and
   bitwise against each other;
-- audit: the main path with ``audit=True`` (the flag pass K2.1 as torch
-  ops on the card, the flagged slots recounted in float64): flagged slots
-  equal the oracle, the others the unaudited counts bit for bit, and every
-  slot lies within 1e-6 of the oracle; the engineered on-edge pair of the
-  JAX package's audit tests (``tests/torch_audit_cases.py``), which K1.1
-  counts on the wrong side of the edge and the audit repairs; and blocked
-  ``autocorrelate(audit=True)`` against the in-memory audited run, on the
-  benchmark's reference and randoms halved.
+- audit: the main path with ``audit=True`` (the flag pass K2.1 through
+  the flag kernel on the card, the flagged slots recounted in float64):
+  flagged slots equal the oracle, the others the unaudited counts bit for
+  bit, and every slot lies within 1e-6 of the oracle; the engineered
+  on-edge pair of the JAX package's audit tests
+  (``tests/torch_audit_cases.py``), which K1.1 counts on the wrong side of
+  the edge and the audit repairs; and blocked ``autocorrelate(audit=True)``
+  against the in-memory audited run, on the benchmark's reference and
+  randoms halved. Each of the three launches the flag kernel, never runs
+  the plain flag pass on the card (a spy), and flags the same slots as a
+  rerun with the plain flag pass.
 - batch pipeline: the JAX package's setup schema and project layout,
   through the command line's ``main`` (``python -m
   yet_another_wizz_tpu_torch.cli``) with ``--device cuda``, at the
@@ -109,8 +112,12 @@ share of candidate pairs in reach of an edge, the share of chunk blocks
 the cumulative kernel's skip rule keeps, and the bound of the work these
 inputs need beside the every-pair bound; it holds K1.1 (headline DD and
 RD) and K1.2 (w_ss DD) with unit weights on their full pair lists bit for
-bit against the plain version, and it times kernel B on a list shaped like
-the wide grid's cross RD against ``index_add_``.
+bit against the plain version, it times kernel B on a list shaped like
+the wide grid's cross RD against ``index_add_``, and it holds the flag
+kernel (K2.1) bit for bit against the plain flag pass on the full headline
+DD and RD and w_ss DD lists with the audit's band, logging both times, the
+every-pair and reach bounds, the kept share of chunk blocks and the
+flagged share of tile pairs.
 Every path resets the kernels' launch counts before it runs and checks
 after it that each variant of the path launched. The single-device phases
 pin the automatic device pool to one card (``YAWT_NUM_DEVICES=1``). The counts are checked
@@ -121,10 +128,13 @@ Without a CUDA card it exits non-zero before printing a result.
 ``python3 chip_smoke.py --survey-child KIND ROOT OUT`` is the survey path's
 child process (``KIND`` ``catalog`` or ``lazy``) and ``--mp-child ROOT``
 a process of the two-process phase; neither is run by hand.
+``python3 chip_smoke.py --audit-survey`` runs no phase above: it builds
+the kernels and measures the audit at survey size (:func:`audit_survey`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -251,6 +261,10 @@ MP_TIMEOUT = 300
 CATALOG_NAMES = ("reference", "unknown", "randoms")
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
+FLAGS_REPLACE = "yet_another_wizz_tpu/ops/paircount.py:257"
+"""K2.1: ``_pair_block_boundary`` (XLA), which the flag kernel replaces with
+``_boundary_flags_xla`` (``:303``) and ``_boundary_flags_gathered``
+(``:327``)."""
 
 
 def log(message: str) -> None:
@@ -341,6 +355,7 @@ def ptxas_summary(compiler_log: str) -> list[str]:
     variant = re.compile(
         r"paircount_(?:partials|direct)_kernelILi(\d+)ELb([01])E(?:Li(\d+)E)?"
     )
+    flags = re.compile(r"boundary_flags_kernelILi(\d+)ELb([01])E")
     for line in compiler_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
@@ -349,6 +364,9 @@ def ptxas_summary(compiler_log: str) -> list[str]:
             if match:
                 ne, binned, direct = match.groups()
                 name = f"A<NE={ne}, binned={binned}, direct={direct or 0}>"
+            elif flags.search(name):
+                ne, binned = flags.search(name).groups()
+                name = f"C flags<NE={ne}, binned={binned}>"
             elif "segment_sum" in name:
                 name = "B segment_sum"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -380,7 +398,7 @@ def build_kernels() -> None:
     check(not spilling, "kernel instances spill registers")
     for line in summary:
         registers = int(re.search(r": (\d+) registers", line).group(1))
-        check("direct=0" in line or registers <= 64,
+        check(not line.startswith("A<") or "direct=0" in line or registers <= 64,
               f"a direct instance needs more than 64 registers: {line}")
     t0 = time.perf_counter()
     log(f"native host library: {'built' if _native.enabled() else 'MISSING'} "
@@ -728,6 +746,94 @@ def segment_check(card, label, partial, pairs, *, double_reference=False):
     return result
 
 
+def flag_check(card, links, catalogs, count) -> dict:
+    """The flag kernel (K2.1) against the plain flag pass on the full pair
+    list of one count, with the audit's band (``audit_band`` of the union
+    edges): bit for bit, two kernel runs equal; the kernel's milliseconds
+    (median of :data:`KERNEL_REPS`) and the plain version's (one run); the
+    every-pair bound (every candidate pair at 16 + 3E float32 operations)
+    and the reach bound (the ``bound_ms`` of the result: 16 + 3E operations
+    for each valid pair within its row's widened reach, the largest ``t +
+    band`` of its bin, in the tile pairs the kernel does not flag, and one
+    pair for each it flags); the share of chunk blocks the widened skip
+    keeps (``chunk_keep_mask`` with the band) and of tile pairs flagged."""
+    import numpy as np
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        audit_band,
+        boundary_flags,
+        boundary_flags_torch,
+        chunk_keep_mask,
+        partial_counts_torch,
+    )
+    from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
+
+    tiles1, tiles2, pairs = engine_inputs(links, catalogs, count)
+    device = torch.device("cuda")
+    table_np = np.ascontiguousarray(links.edges.chord2_table, np.float32)
+    band_np = audit_band(links.edges.edges, table_np).astype(np.float32)
+    table = torch.from_numpy(table_np).to(device)
+    band = torch.from_numpy(band_np).to(device)
+    lanes1 = tiles1.device_data(device)
+    lanes2 = tiles2.device_data(device)
+    tile1 = torch.from_numpy(pairs.tile1.astype(np.int32)).to(device)
+    tile2 = torch.from_numpy(pairs.tile2.astype(np.int32)).to(device)
+    cols_binned = tiles2.binned
+
+    def kernel():
+        return boundary_flags(
+            lanes1, lanes2, tile1, tile2, table, band, cols_binned=cols_binned
+        )
+
+    def plain():
+        return boundary_flags_torch(
+            lanes1, lanes2, tile1.long(), tile2.long(), table, band,
+            cols_binned=cols_binned,
+        )
+
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), "boundary_flags is not deterministic")
+    expected = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(first, expected),
+          f"boundary_flags [{count}] differs from the plain flag pass in "
+          f"{int((first != expected).sum())} of {len(first)} tile pairs")
+    num_pairs = len(tile1)
+    per_pair = 16 + 3 * table.shape[1]
+    candidates = num_pairs * tiles1.tile_size * tiles2.tile_size
+    num_bytes = nbytes(lanes1, lanes2, tile1, tile2, table, band, first)
+    every_pair_ms, _ = bound(candidates * per_pair, num_bytes)
+    reach = (table + band).amax(dim=1, keepdim=True)
+    in_reach = partial_counts_torch(
+        unit_weights(lanes1), unit_weights(lanes2), tile1.long(), tile2.long(),
+        reach, cols_binned=cols_binned, chunk_size=PLAIN_CHUNK,
+    ).double().sum(dim=(1, 2))
+    needed = in_reach[~first].sum().item() + first.sum().item()
+    bound_ms, bound_by = bound(needed * per_pair, num_bytes)
+    kept = chunk_keep_mask(
+        lanes1, chunk_caps(lanes1), chunk_caps(lanes2), tile1, tile2, table,
+        cols_binned=cols_binned, band_table=band,
+    ).double().mean().item()
+    result = dict(
+        name="boundary_flags", count=count, tile_pairs=num_pairs,
+        err=(0.0, 0.0), ms=cuda_ms(kernel, KERNEL_REPS),
+        plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, replaces=FLAGS_REPLACE,
+    )
+    log(f"[{card}] boundary_flags [{count}, all {num_pairs} tile pairs, table "
+        f"{tuple(table.shape)}, binned columns {cols_binned}]: kernel "
+        f"{result['ms']:.4f} ms, plain {result['plain_ms']:.1f} ms, reach "
+        f"bound {bound_ms:.4f} ms ({bound_by}; pairs in the widened reach "
+        f"{in_reach.sum().item() / candidates:.4f} of the candidates, "
+        f"{needed / candidates:.4f} needed), every-pair bound "
+        f"{every_pair_ms:.3f} ms, chunk blocks kept {kept:.4f}, tile pairs "
+        f"flagged {int(first.sum())} ({first.double().mean().item():.4f}), "
+        "bit for bit the plain flag pass, two kernel runs equal")
+    return result
+
+
 def kernels_vs_plain(card, catalogs, configs) -> dict:
     """Every kernel against its plain version on the card, on the real
     inputs of its path; the direct kernel also on the >16-entry
@@ -804,6 +910,12 @@ def kernels_vs_plain(card, catalogs, configs) -> dict:
     )
     check(result["name"] == "paircount_partials_direct",
           f"the many-scale cross DD ran {result['name']}")
+    # the flag kernel (K2.1) on the headline's DD and RD and w_ss DD lists
+    results["boundary_flags"] = flag_check(
+        card, links["headline"], catalogs, "cross DD"
+    )
+    for count in ("cross RD", "auto DD"):
+        flag_check(card, links["headline"], catalogs, count)
     return results
 
 
@@ -1002,6 +1114,56 @@ def slot_relative_error(actual, desired) -> float:
     return float((np.abs(actual - desired)[nonzero] / np.abs(desired[nonzero])).max())
 
 
+@contextlib.contextmanager
+def flag_spy():
+    """Counts the plain flag pass's calls on CUDA tensors while active (a
+    list of one count): on the card the audit must take the kernel."""
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    plain = paircount.boundary_flags_torch
+    calls = [0]
+
+    def spy(lanes1, *args, **kwargs):
+        calls[0] += lanes1.device.type == "cuda"
+        return plain(lanes1, *args, **kwargs)
+
+    paircount.boundary_flags_torch = spy
+    try:
+        yield calls
+    finally:
+        paircount.boundary_flags_torch = plain
+
+
+@contextlib.contextmanager
+def plain_flag_pass():
+    """The audit's flag pass through its plain version on the card, for a
+    rerun whose flagged slots the kernel's must equal."""
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    dispatch = paircount.boundary_flags
+
+    def plain(lanes1, lanes2, tile1, tile2, *args, **kwargs):
+        return paircount.boundary_flags_torch(
+            lanes1, lanes2, tile1.long(), tile2.long(), *args, **kwargs
+        )
+
+    paircount.boundary_flags = plain
+    try:
+        yield
+    finally:
+        paircount.boundary_flags = dispatch
+
+
+def same_flagged_slots(stats, other) -> bool:
+    """Whether two lists of audit records flagged the same slots."""
+    import numpy as np
+
+    return len(stats) == len(other) and all(
+        np.array_equal(a["flagged_slots"], b["flagged_slots"])
+        for a, b in zip(stats, other)
+    )
+
+
 def flag_pass_bound(stats, num_edges: int, tile_size: int) -> tuple[float, str]:
     """The least milliseconds of one flag pass (K2.1): every candidate pair
     of its list at 16 + 3E float32 operations (the compensated chord, the
@@ -1015,7 +1177,9 @@ def flag_pass_bound(stats, num_edges: int, tile_size: int) -> tuple[float, str]:
 def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
     """The main path with ``audit=True``: each flagged slot equals the
     float64 oracle, each other slot the unaudited count bit for bit, and
-    every slot's counts lie within :data:`AUDIT_RTOL` of the oracle."""
+    every slot's counts lie within :data:`AUDIT_RTOL` of the oracle. The
+    flag kernel runs once per count, the plain flag pass never on the
+    card, and a rerun with the plain flag pass flags the same slots."""
     import numpy as np
 
     from yet_another_wizz_tpu_torch.correlation.measurements import (
@@ -1035,20 +1199,33 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         )
 
     paircount.reset_audit_stats()
-    (corr,), _ = run_path(
-        "audit (crosscorrelate, audit=True)", audited,
-        {"paircount_partials": 2, "paircount_segment_sum": 2}, launches_total,
-    )
+    with flag_spy() as plain_calls:
+        (corr,), _ = run_path(
+            "audit (crosscorrelate, audit=True)", audited,
+            {"paircount_partials": 2, "paircount_segment_sum": 2,
+             "boundary_flags": 2},
+            launches_total,
+        )
+    check(plain_calls[0] == 0, "audit: the plain flag pass ran on the card")
     check(len(paircount.AUDIT_STATS) == 2, "audit: not one audit per count")
     first = list(paircount.AUDIT_STATS)
     paircount.reset_audit_stats()
     t0 = time.perf_counter()
     (again,) = audited()
     warm = time.perf_counter() - t0
+    rerun_stats = list(paircount.AUDIT_STATS)
+    paircount.reset_audit_stats()
+    with plain_flag_pass():
+        t0 = time.perf_counter()
+        audited()
+        plain_warm = time.perf_counter() - t0
+    plain_stats = list(paircount.AUDIT_STATS)
+    check(same_flagged_slots(first, plain_stats),
+          "audit: the plain flag pass flags other slots than the kernel")
     links = PatchLinkage.from_catalogs(config, *catalogs)
     num_edges = links.edges.chord2_table.shape[1]
-    for (name, stats), rerun in zip(
-        zip(("DD", "RD"), first), paircount.AUDIT_STATS
+    for (name, stats), rerun, plain_rerun in zip(
+        zip(("DD", "RD"), first), rerun_stats, plain_stats
     ):
         oracle, pairs = oracles[name]
         check(stats["tile_pairs"] == pairs.num_pairs, f"audit {name}: another list")
@@ -1064,9 +1241,11 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         plain_err = slot_relative_error(plain, expected)
         bound_ms, bound_by = flag_pass_bound(stats, num_edges, DEFAULT_TILE_SIZE)
         log(f"[{card}] audit {name}: {len(flagged)} of {pairs.num_slots} slots "
-            f"flagged ({stats['tile_pairs']} tile pairs); flag pass (K2.1, torch "
-            f"ops) {stats['flag_ms']:.1f} ms on the card ({rerun['flag_ms']:.1f} "
-            f"ms warm), bound {bound_ms:.3f} ms ({bound_by}); float64 recount "
+            f"flagged ({stats['tile_pairs']} tile pairs; the plain flag pass's "
+            f"rerun the same); flag pass (K2.1 kernel) {stats['flag_ms']:.3f} ms "
+            f"on the card ({rerun['flag_ms']:.3f} ms warm; plain flag pass "
+            f"{plain_rerun['flag_ms']:.1f} ms), every-pair bound "
+            f"{bound_ms:.3f} ms ({bound_by}); float64 recount "
             f"{stats['recount_seconds']:.2f} s ({rerun['recount_seconds']:.2f} s "
             f"warm) on {stats['recount_workers']} threads; flagged slots vs "
             f"oracle max rel {flagged_err:.3e}; unflagged slots bitwise the "
@@ -1078,7 +1257,10 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
               f"audit {name}: an unflagged slot differs from the unaudited count")
         check(slot_err <= AUDIT_RTOL, f"audit {name}: per-slot counts off the oracle")
     check(same_counts(again, corr), "audit: the warm run differs from the first")
-    log(f"[{card}] audit (crosscorrelate + audit, DD + RD): warm {warm:.2f} s")
+    log(f"[{card}] audit (crosscorrelate + audit, DD + RD): warm {warm:.2f} s "
+        f"(flag passes {sum(r['flag_ms'] for r in rerun_stats):.3f} ms, "
+        f"recounts {sum(r['recount_seconds'] for r in rerun_stats):.2f} s); "
+        f"with the plain flag pass {plain_warm:.2f} s")
 
 
 def audit_flip(card, launches_total) -> None:
@@ -1094,24 +1276,40 @@ def audit_flip(card, launches_total) -> None:
     sys.path.insert(0, os.path.join(here, "tests"))
     import torch_audit_cases as cases
 
+    from yet_another_wizz_tpu_torch.ops import paircount
+
     case = cases.on_edge_case(np.random.default_rng(12345), 1.0)
     tiles1, tiles2, pairs = cases.port_inputs(case)
     expected = count_pairs_oracle(*cases.oracle_inputs(case, pairs))
-    (raw, fixed), _ = run_path(
-        "audit flip (engineered on-edge pair)",
-        lambda: tuple(
-            count_pairs_tiles(
-                tiles1, tiles2, pairs, case["chord2"], backend="cuda",
-                device="cuda", edges_radian=case["edges"], audit=audit,
-            )
-            for audit in (False, True)
-        ),
-        {"paircount_partials": 2, "paircount_segment_sum": 2}, launches_total,
-    )
+
+    def count(audit):
+        return count_pairs_tiles(
+            tiles1, tiles2, pairs, case["chord2"], backend="cuda",
+            device="cuda", edges_radian=case["edges"], audit=audit,
+        )
+
+    paircount.reset_audit_stats()
+    with flag_spy() as plain_calls:
+        (raw, fixed), _ = run_path(
+            "audit flip (engineered on-edge pair)",
+            lambda: (count(False), count(True)),
+            {"paircount_partials": 2, "paircount_segment_sum": 2,
+             "boundary_flags": 1},
+            launches_total,
+        )
+    check(plain_calls[0] == 0, "audit flip: the plain flag pass ran on the card")
+    kernel_stats = list(paircount.AUDIT_STATS)
+    paircount.reset_audit_stats()
+    with plain_flag_pass():
+        count(True)
+    check(same_flagged_slots(kernel_stats, paircount.AUDIT_STATS),
+          "audit flip: the plain flag pass flags other slots than the kernel")
     raw_err = np.abs(raw - expected).max()
     fixed_err = np.abs(fixed - expected).max()
     log(f"[{card}] audit flip: unaudited K1.1 off the oracle by {raw_err:.6f} "
-        f"(the pair weight is 1e4), audited by {fixed_err:.3e}")
+        f"(the pair weight is 1e4), audited by {fixed_err:.3e}; "
+        f"{len(kernel_stats[0]['flagged_slots'])} slot(s) flagged by the "
+        "kernel, the same by the plain flag pass")
     check(raw_err >= 0.999e4, "audit flip: the engineered pair did not flip")
     check(fixed_err <= 1e-3, "audit flip: the audit did not repair the flip")
 
@@ -1147,17 +1345,35 @@ def audit_blocked(card, config, launches_total) -> None:
     t_memory = time.perf_counter() - t0
     flagged_memory = flagged()
     paircount.reset_audit_stats()
-    t0 = time.perf_counter()
-    (blocked,), _ = run_path(
-        "audit blocked (autocorrelate, audit=True, max_resident_patches="
-        f"{AUDIT_RESIDENT})",
-        lambda: autocorrelate(
+
+    def blocked_run():
+        return autocorrelate(
             config, data, random, max_resident_patches=AUDIT_RESIDENT, **run
-        ),
-        {"paircount_partials_binned": 3, "paircount_segment_sum": 3},
-        launches_total,
-    )
+        )
+
+    t0 = time.perf_counter()
+    with flag_spy() as plain_calls:
+        (blocked,), _ = run_path(
+            "audit blocked (autocorrelate, audit=True, max_resident_patches="
+            f"{AUDIT_RESIDENT})",
+            blocked_run,
+            {"paircount_partials_binned": 3, "paircount_segment_sum": 3,
+             "boundary_flags": 3},
+            launches_total,
+        )
     t_blocked = time.perf_counter() - t0
+    check(plain_calls[0] == 0, "audit blocked: the plain flag pass ran on the card")
+    kernel_stats = list(paircount.AUDIT_STATS)
+    flagged_blocked = flagged()
+    paircount.reset_audit_stats()
+    t0 = time.perf_counter()
+    with plain_flag_pass():
+        blocked_run()
+    t_plain = time.perf_counter() - t0
+    check(same_flagged_slots(kernel_stats, paircount.AUDIT_STATS),
+          "audit blocked: the plain flag pass flags other slots than the kernel")
+    flag_ms = sum(stats["flag_ms"] for stats in kernel_stats)
+    plain_ms = sum(stats["flag_ms"] for stats in paircount.AUDIT_STATS)
     errs = []
     for name in ("dd", "dr", "rr"):
         ours = getattr(blocked, name).counts.counts
@@ -1166,8 +1382,10 @@ def audit_blocked(card, config, launches_total) -> None:
     log(f"[{card}] audit blocked ({NUM_REFERENCE // AUDIT_CUT} + "
         f"{NUM_RANDOMS // AUDIT_CUT} points, {NUM_PATCHES} patches): in memory "
         f"{t_memory:.2f} s ({flagged_memory} slots recounted over DD, DR, RR), "
-        f"blocked {t_blocked:.2f} s ({flagged()} block-pair slots recounted); "
-        "blocked vs in-memory max|err|/max DD, DR, RR "
+        f"blocked {t_blocked:.2f} s ({flagged_blocked} block-pair slots "
+        f"recounted; {len(kernel_stats)} flag passes, {flag_ms:.3f} ms of flag "
+        f"kernel; with the plain flag pass {t_plain:.2f} s, {plain_ms:.1f} ms, "
+        "the same slots flagged); blocked vs in-memory max|err|/max DD, DR, RR "
         + ", ".join(f"{e:.3e}" for e in errs))
     check(flagged_memory > 0, "audit blocked: no slot was flagged")
     check(max(errs) <= RTOL, "audit blocked: off the in-memory audited counts")
@@ -1617,12 +1835,13 @@ def write_survey_caches(root: str) -> None:
     )
 
 
-def survey_run(config, catalogs, mesh=None, data_sharding="replicated", **budgets):
+def survey_run(config, catalogs, mesh=None, data_sharding="replicated",
+               audit=False, **budgets):
     """One survey measurement (blocked ``crosscorrelate`` DD + RD and the
     jackknife n(z)) in a tile cache of its own, with the ``budgets`` of
-    ``measurement_tile_cache``, on one device or sharded over ``mesh``:
-    ``(w_sp, n(z), stats)``, with the run's phase totals and the cache's
-    statistics in ``stats``."""
+    ``measurement_tile_cache``, on one device or sharded over ``mesh``,
+    audited with ``audit``: ``(w_sp, n(z), stats)``, with the run's phase
+    totals and the cache's statistics in ``stats``."""
     import torch
 
     from yet_another_wizz_tpu_torch.correlation import blocked
@@ -1634,7 +1853,8 @@ def survey_run(config, catalogs, mesh=None, data_sharding="replicated", **budget
         (wsp,) = crosscorrelate(
             config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
             max_resident_patches=SURVEY_RESIDENT, device="cuda", mesh=mesh,
-            data_sharding=data_sharding,
+            data_sharding=data_sharding, audit=audit,
+            max_workers=len(os.sched_getaffinity(0)) if audit else None,
         )
         nz = RedshiftData.from_corrfuncs(wsp)
     torch.cuda.synchronize()
@@ -1793,6 +2013,87 @@ def survey_path(card, config, launches_total) -> None:
     root = tempfile.mkdtemp(prefix="yawt_survey_")
     try:
         survey_checks(card, config, launches_total, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def audit_survey(card) -> None:
+    """The audit at survey size: the survey cell's blocked
+    ``crosscorrelate`` (caches in a temporary directory, removed at the
+    end) warm without the audit, then with ``audit=True``. Logs both
+    times, the flag passes (one flag kernel launch each, the plain flag
+    pass never on the card) and their milliseconds, the recounted slots
+    and the float64 recount's seconds. The audited counts of the slots
+    the audit moved most, and of evenly spaced ones, lie within
+    :data:`RTOL` of the float64 oracle (max|err| over the largest count,
+    the survey's oracle gate; the unaudited counts beside them)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    config = Configuration.create(**CONFIG)
+    root = tempfile.mkdtemp(prefix="yawt_audit_survey_")
+    try:
+        write_survey_caches(root)
+        catalogs = tuple(Catalog(os.path.join(root, name)) for name in SURVEY_NAMES)
+        survey_run(config, catalogs)  # fills the tile store
+        t0 = time.perf_counter()
+        plain, _, _ = survey_run(config, catalogs)
+        t_plain = time.perf_counter() - t0
+        paircount.reset_audit_stats()
+        t0 = time.perf_counter()
+        with flag_spy() as plain_calls:
+            (audited, nz, stats), launches = run_path(
+                "survey audit (blocked crosscorrelate, audit=True)",
+                lambda: survey_run(config, catalogs, audit=True),
+                {"paircount_partials": 1, "paircount_segment_sum": 1,
+                 "boundary_flags": 1},
+                {},
+            )
+        t_audit = time.perf_counter() - t0
+        check(plain_calls[0] == 0, "survey audit: the plain flag pass ran on the card")
+        audits = paircount.AUDIT_STATS
+        check(len(audits) == stats["num_block_pairs"] == launches["boundary_flags"],
+              "survey audit: not one flag pass per block pair")
+        check_nz(nz, "survey audit", SURVEY_PATCHES)
+        log(f"[{card}] survey audit ({stats['num_block_pairs']} block pairs, "
+            f"{sum(a['tile_pairs'] for a in audits)} tile pairs): warm unaudited "
+            f"{t_plain:.2f} s, audited {t_audit:.2f} s; {len(audits)} flag "
+            f"passes, {sum(a['flag_ms'] for a in audits):.3f} ms of flag kernel "
+            f"({sum(a['flag_seconds'] for a in audits):.3f} s of host); "
+            f"{sum(len(a['flagged_slots']) for a in audits)} of "
+            f"{sum(a['slots'] for a in audits)} block-pair slots recounted in "
+            f"{sum(a['recount_seconds'] for a in audits):.2f} s of float64 on "
+            f"{max(a['recount_workers'] for a in audits)} threads")
+        links = PatchLinkage.from_catalogs(config, *catalogs)
+        for name, count in (("DD", "cross DD"), ("RD", "cross RD")):
+            _, _, pairs = engine_inputs(links, catalogs, count)
+            ours = main_path_counts(getattr(audited, name.lower()), pairs, False)
+            before = main_path_counts(getattr(plain, name.lower()), pairs, False)
+            moved = np.abs(ours - before).max(axis=1)
+            slots = np.union1d(
+                np.argsort(moved)[-4:],
+                np.linspace(0, pairs.num_slots - 1, 12).astype(int),
+            )
+            _, oracle, _, t_oracle = oracle_counts(links, catalogs, count, slots)
+            expected = links.edges.counts_to_scales(oracle)[0]
+            scale = np.abs(expected).max()
+            err = np.abs(ours[slots] - expected).max() / scale
+            err_before = np.abs(before[slots] - expected).max() / scale
+            log(f"[{card}] survey audit {name}: {int(np.sum(moved > 0))} of "
+                f"{pairs.num_slots} patch-pair slots moved by the audit (largest "
+                f"{moved.max():.6g}); on {len(slots)} slots (the 4 moved most "
+                f"and 12 evenly spaced) vs float64 oracle ({t_oracle:.1f} s): "
+                f"max|err|/max|oracle| {err:.3e} (unaudited {err_before:.3e}), "
+                f"per element max rel {slot_relative_error(ours[slots], expected):.3e}"
+                f" (unaudited {slot_relative_error(before[slots], expected):.3e})")
+            check(err <= RTOL, f"survey audit {name}: off the oracle")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2825,7 +3126,7 @@ def main() -> None:
             "name": key,
             "route": "cuda",
             "source": SOURCE,
-            "replaces": REPLACES,
+            "replaces": result.get("replaces", REPLACES),
             "launches": launches_total[key],
             "max_abs_err": result["err"][0],
             "ms": result["ms"],
@@ -2852,5 +3153,10 @@ if __name__ == "__main__":
         survey_child(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--mp-child"]:
         mp_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--audit-survey"]:
+        os.environ["YAWT_NUM_DEVICES"] = "1"
+        smi = environment()
+        build_kernels()
+        audit_survey(smi)
     else:
         main()

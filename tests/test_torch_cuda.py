@@ -18,16 +18,20 @@ cases (``torch_chunk_cases.py``: a pair exactly on a threshold between
 tangent caps, padding chunks) and on catalog tiles, so a wrongly skipped
 pair shows. The blocked measurement path on the card (lanes uploaded on a
 side stream, counts accumulated on the device) equals the in-memory path.
-The audit's flag pass on the card equals its run on the CPU, and the audit
-repairs the engineered on-edge flip of ``torch_audit_cases.py`` on the
-card, in memory and blocked.
+The audit's flag pass on the card runs the flag kernel (kernel C), whose
+flags are ``torch.equal`` to the plain version's on the cross and
+binned-column lists, signed weights, more than 16 edges, the chunk edge
+cases with a pair exactly at ``t + band`` and one a float32 ulp beyond it,
+the engineered on-edge pair of ``torch_audit_cases.py`` and the streamed
+windows of host-gathered lanes; the audit repairs that pair's flip on the
+card, in memory and blocked, through the kernel.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_chunk_cases import edge_case_inputs, unit_weights
+from torch_chunk_cases import band_inputs, edge_case_inputs, unit_weights
 from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
 from yet_another_wizz_tpu_torch.ops.linkage import (
@@ -457,7 +461,11 @@ def test_blocked_path_matches_in_memory_on_the_card(device, monkeypatch, shape):
 
 def test_flag_pass_on_the_card_equals_the_cpu(device):
     from yet_another_wizz_tpu_torch.coordinates import chord_to_angle
-    from yet_another_wizz_tpu_torch.ops.paircount import audit_band, boundary_flags
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        audit_band,
+        boundary_flags,
+        boundary_flags_torch,
+    )
 
     tiles1, tiles2, pairs, table = cross_inputs(np.random.default_rng(11))
     edges = chord_to_angle(np.sqrt(table.astype(np.float64)))
@@ -470,12 +478,129 @@ def test_flag_pass_on_the_card_equals_the_cpu(device):
         torch.from_numpy(tiles1.lane_data), torch.from_numpy(tiles2.lane_data),
         index1, index2, *args,
     )
-    on_card = boundary_flags(
+    card_args = (
         tiles1.device_data(device), tiles2.device_data(device),
-        index1.to(device), index2.to(device), *(a.to(device) for a in args),
+        index1.int().to(device), index2.int().to(device),
+        *(a.to(device) for a in args),
+    )
+    cuda_paircount.reset_launch_counts()
+    on_card = boundary_flags(*card_args)
+    assert cuda_paircount.launch_counts["boundary_flags"] == 1
+    plain = boundary_flags_torch(
+        *card_args[:2], card_args[2].long(), card_args[3].long(), *card_args[4:]
     )
     assert 0 < int(on_cpu.sum()) < len(on_cpu)
     assert torch.equal(on_card.cpu(), on_cpu)
+    assert torch.equal(on_card, plain)
+
+
+def flag_inputs(case):
+    """CPU inputs of a flag-pass comparison: ``(lanes1, lanes2, tile1,
+    tile2, table, band)`` and ``cols_binned``."""
+    import torch_audit_cases as cases
+    from yet_another_wizz_tpu_torch.coordinates import chord_to_angle
+    from yet_another_wizz_tpu_torch.ops.paircount import audit_band
+
+    if case.startswith("edge"):
+        _, binned, where = case.split("-")
+        lanes1, lanes2, tile1, tile2, table = edge_case_inputs(
+            19, signed=binned == "binned"
+        )
+        table, band = band_inputs(table, beyond=where == "beyond")
+        return (lanes1, lanes2, tile1, tile2, table, band), binned == "binned"
+    if case == "on-edge pair":
+        data = cases.on_edge_case(np.random.default_rng(12345), 1.0)
+        tiles1, tiles2, pairs = cases.port_inputs(data)
+        table = data["chord2"]
+        band = audit_band(data["edges"], table)
+    else:
+        rng = np.random.default_rng(13)
+        if case in ("cross", "cross, 19 edges"):
+            tiles1, tiles2, pairs, table = cross_inputs(
+                rng, num_edges=19 if "19" in case else 3
+            )
+        else:  # signed row weights, unbinned or binned columns
+            tiles1, tiles2, pairs, table, _ = variant_inputs(
+                rng, "cumulative", case == "signed, binned"
+            )
+        edges = chord_to_angle(np.sqrt(table.astype(np.float64)))
+        band = audit_band(edges, table, rel_band=2e-3)
+    inputs = (
+        torch.from_numpy(tiles1.lane_data), torch.from_numpy(tiles2.lane_data),
+        torch.from_numpy(pairs.tile1.astype(np.int32)),
+        torch.from_numpy(pairs.tile2.astype(np.int32)),
+        torch.from_numpy(table), torch.from_numpy(band.astype(np.float32)),
+    )
+    return inputs, tiles2.binned
+
+
+@pytest.mark.parametrize("case", [
+    "cross", "cross, 19 edges", "signed", "signed, binned", "on-edge pair",
+    "edge-cross-at", "edge-cross-beyond", "edge-binned-at", "edge-binned-beyond",
+])
+def test_flag_kernel_equals_the_plain_version(device, case):
+    """The flag kernel's flags are bit for bit the plain version's on the
+    card, one launch per group of 16 edges."""
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        boundary_flags,
+        boundary_flags_torch,
+    )
+
+    inputs, cols_binned = flag_inputs(case)
+    inputs = [t.to(device) for t in inputs]
+    cuda_paircount.reset_launch_counts()
+    kernel = boundary_flags(*inputs, cols_binned=cols_binned)
+    again = boundary_flags(*inputs, cols_binned=cols_binned)
+    launches = cuda_paircount.launch_counts["boundary_flags"]
+    plain = boundary_flags_torch(
+        *inputs[:2], inputs[2].long(), inputs[3].long(), *inputs[4:],
+        cols_binned=cols_binned,
+    )
+    torch.cuda.synchronize()
+    assert launches == 2 * -(-inputs[4].shape[1] // 16)
+    assert torch.equal(kernel, plain)
+    assert torch.equal(again, kernel)
+    if case in ("edge-cross-at", "edge-binned-at", "on-edge pair"):
+        assert plain.any()
+
+
+def test_streamed_flag_pass_on_the_card(device, monkeypatch):
+    """Beyond AUDIT_RESIDENT_BYTES the flag pass streams windows of
+    host-gathered lanes through the kernel (one launch per window, the
+    plain version never on the card): the flagged slots are the resident
+    pass's and the CPU's."""
+    import torch_audit_cases as cases
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    case = cases.on_edge_case(np.random.default_rng(12345), 1.0 + 1e-8)
+    ts1, ts2, pairs = cases.port_inputs(case)
+
+    def flagged(on):
+        paircount.reset_audit_stats()
+        count_pairs_tiles(
+            ts1, ts2, pairs, case["chord2"], device=on,
+            edges_radian=case["edges"], audit=True,
+        )
+        return paircount.AUDIT_STATS[-1]["flagged_slots"]
+
+    resident, on_cpu = flagged(device), flagged("cpu")
+    plain = paircount.boundary_flags_torch
+
+    def cpu_only(lanes1, *args, **kwargs):
+        assert lanes1.device.type == "cpu", "the plain flag pass ran on the card"
+        return plain(lanes1, *args, **kwargs)
+
+    monkeypatch.setattr(paircount, "boundary_flags_torch", cpu_only)
+    monkeypatch.setattr(paircount, "AUDIT_RESIDENT_BYTES", 0)
+    # windows of 64 tile pairs (the smallest window)
+    monkeypatch.setattr(paircount, "AUDIT_WINDOW_BYTES", 1)
+    cuda_paircount.reset_launch_counts()
+    streamed = flagged(device)
+    assert cuda_paircount.launch_counts["boundary_flags"] == -(-pairs.num_pairs // 64)
+    assert pairs.num_pairs > 64
+    assert len(resident) >= 1
+    np.testing.assert_array_equal(streamed, resident)
+    np.testing.assert_array_equal(resident, on_cpu)
 
 
 def test_audit_repairs_the_flip_on_the_card(device):
@@ -486,10 +611,12 @@ def test_audit_repairs_the_flip_on_the_card(device):
     ts1, ts2, pairs = cases.port_inputs(case)
     expect = count_pairs_oracle(*cases.oracle_inputs(case, pairs))
     raw = count_pairs_tiles(ts1, ts2, pairs, case["chord2"], device=device)
+    cuda_paircount.reset_launch_counts()
     fixed = count_pairs_tiles(
         ts1, ts2, pairs, case["chord2"], device=device,
         edges_radian=case["edges"], audit=True,
     )
+    assert cuda_paircount.launch_counts["boundary_flags"] > 0
     assert np.abs(raw - expect).max() > 100.0  # the whole 1e4 pair weight
     assert np.abs(fixed - expect).max() < 1e-3
 
@@ -514,10 +641,12 @@ def test_blocked_audit_matches_in_memory_on_the_card(device):
         rmin=500, rmax=3000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=4
     )
     (memory,) = autocorrelate(config, reference, randoms, device=device, audit=True)
+    cuda_paircount.reset_launch_counts()
     (blocked,) = autocorrelate(
         config, reference, randoms, device=device, audit=True,
         max_resident_patches=5,
     )
+    assert cuda_paircount.launch_counts["boundary_flags"] > 0
     for name in ("dd", "dr", "rr"):
         np.testing.assert_allclose(
             getattr(blocked, name).counts.counts,

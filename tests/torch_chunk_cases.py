@@ -16,6 +16,11 @@ sits in a chunk of its own) with these cases:
   counted points;
 - chunks far beyond every threshold, and random clusters with signed
   weights and mixed bins.
+
+:func:`band_inputs` splits each bin's largest threshold of those cases
+into a threshold and an audit band, so that the pair on it lies exactly at
+``t + band`` or one float32 ulp beyond; :func:`near_pairs` is the audit's
+per-pair test in the kernels' operations.
 """
 
 import numpy as np
@@ -208,3 +213,51 @@ def edge_case_inputs(seed: int, *, signed: bool):
     tile1 = torch.tensor([0, 0, 1, 1, 2], dtype=torch.int32)
     tile2 = torch.tensor([0, 1, 0, 1, 2], dtype=torch.int32)
     return lanes1, lanes2, tile1, tile2, table
+
+
+def near_pairs(lanes1, lanes2, tile1, tile2, table, band, *, cols_binned):
+    """``(P, T, T)`` bool: valid pairs (nonzero weights; with binned
+    columns, equal bins) with ``|chord2 - t| <= band`` for an edge of their
+    row's bin, the chord in the kernels' operations and order."""
+    rows, cols = lanes1[tile1.long()], lanes2[tile2.long()]
+    bins = rows[:, CHANNEL_ZBIN].long().clamp(0, table.shape[0] - 1)  # (P, T)
+    chord2 = kernel_chord2(rows, cols)[..., None]  # (P, T, T, 1)
+    near = ((chord2 - table[bins][:, :, None]).abs() <= band[bins][:, :, None])
+    near = near.any(dim=3)
+    near &= (rows[:, CHANNEL_WEIGHT] != 0)[:, :, None]
+    near &= (cols[:, CHANNEL_WEIGHT] != 0)[:, None, :]
+    if cols_binned:
+        near &= rows[:, CHANNEL_ZBIN, :, None] == cols[:, None, CHANNEL_ZBIN, :]
+    return near
+
+
+ON_BAND = [(0, 1, 0)] + [(4, CHUNK_SIZE * k + 1, CHUNK_SIZE * k) for k in range(4)]
+"""``(tile pair, row, column)`` of the pairs exactly on a bin's largest
+threshold in :func:`edge_case_inputs` whose caps are tangent (bins 0 and 2
+to 5): :func:`band_inputs` puts them at ``t + band``."""
+
+
+def band_inputs(table: torch.Tensor, *, beyond: bool):
+    """``(table, band)`` float32 from an :func:`edge_case_inputs` table:
+    each bin's largest threshold ``t*`` (the exact kernel chord of a pair)
+    becomes ``t = t* - band`` with ``band`` near ``t* / 8``, a multiple
+    of the float32 spacing of ``t*``, so that ``t + band`` and ``t* - t``
+    are exact: the pair lies exactly at ``t + band``. With ``beyond`` the
+    band is one spacing smaller, so the pair lies one float32 ulp beyond
+    ``t + band``. The other thresholds keep a band of ``2e-6 t``. A band
+this wide moves the reach by far more than the caps' slack, so a skip that
+left the band out would drop the pair."""
+    t_star, e_star = table.max(dim=1)
+    spacing = torch.from_numpy(np.spacing(t_star.numpy()))
+    wide = torch.round(t_star / 8 / spacing) * spacing
+    band = (table * 2e-6).clone()
+    out = table.clone()
+    rows = torch.arange(len(table))
+    out[rows, e_star] = t_star - wide
+    band[rows, e_star] = wide - spacing if beyond else wide
+    # exact in float32: the pair's chord minus t is the band (or one
+    # spacing above it), and t + band is t* (or the float below it)
+    assert torch.equal(t_star - out[rows, e_star], wide)
+    assert torch.equal(out[rows, e_star] + band[rows, e_star],
+                       t_star - spacing if beyond else t_star)
+    return out, band

@@ -13,6 +13,9 @@
 //   K1.5  signed (kappa) weights: no code of its own; nothing here treats a
 //         weight <= 0 as padding (padding carries weight 0 and adds 0)
 //
+// and the exactness audit's flag pass K2.1, which the JAX package runs in
+// XLA (kernel C below).
+//
 //   A. One thread block per entry k of the tile-pair list. The column tile
 //      and the table are staged in shared memory; each thread owns rows of
 //      the row tile, gathers its row's thresholds by the row's bin id (an
@@ -92,12 +95,47 @@
 //      therefore fixed by W and the run's length, not list order; two runs
 //      are bitwise equal. A slot without entries gets zero. Bound by device memory
 //      bytes (each partial read once).
+//   C. boundary_flags_kernel (K2.1, the exactness audit's flag pass) replaces
+//      yet_another_wizz_tpu/ops/paircount.py::_pair_block_boundary /
+//      _boundary_flags_xla / _boundary_flags_gathered (XLA, not Pallas). It
+//      writes flags[k] = 1 when any valid pair of entry k lies near an edge,
+//      |chord2 - t[b, e]| <= band[b, e] for an edge e of the row's bin b; a
+//      pair is valid when both weights are nonzero (zero marks padding, a
+//      negative weight is real data) and, with binned columns, its bins are
+//      equal. Its structure is paircount_partials_kernel's (one block per
+//      entry, the column tile and its caps in shared memory, one row per
+//      thread, a warp's 32 rows per pass, the same compensated chord), with
+//      less work per pair (16 + 3E float32 operations: the chord, the
+//      column weight test, and a subtraction, absolute value and compare per
+//      edge) and nothing to reduce. Bound by float32 issue on the pairs in
+//      reach, which these do about:
+//      - the widened chunk skip: a row chunk reaches sqrt(m) + r_row, m the
+//        largest t[b, e] + band[b, e] (float32 sum) over its rows of nonzero
+//        weight and their edges, and a column chunk out of chunk_reaches of
+//        that (or, with binned columns, of a disjoint bin range) is skipped
+//        as a warp. Exact: the caps cover both points of a skipped pair of
+//        nonzero weights, CAP_SLACK included, so its true chord exceeds
+//        sqrt(m) by at least 2 CAP_SLACK less the float32 rounding of the
+//        test, and the chord the kernel would compute exceeds t + band by
+//        far more than the rounding of the chord, of chord2 - t and of t +
+//        band (relative ~1e-7 of values below 4): |chord2 - t| > band for
+//        every edge, so the pair cannot hit ((1) of A, with t + band for t);
+//        a pair with a zero weight is not valid wherever it lies, and with
+//        binned columns neither is a pair of unequal bins;
+//      - the early exit: a warp that finds a hit sets a flag in shared
+//        memory, and every warp stops at its next chunk once it reads the
+//        flag (warp-uniform, by a vote). The flag is an OR over the pairs,
+//        so the order of evaluation cannot change it.
+//      Tables wider than 16 edges take one launch per group of 16; a later
+//      group skips the entries an earlier one flagged. Its plain mirror is
+//      ops/paircount.py::boundary_flags_torch, and chunk_keep_mask with a
+//      band table mirrors the skip.
 //
 // The source is compiled once per counting mode (-DYAWT_DIRECT=0, 1 or 2:
 // cumulative, direct small-angle, direct arcsine), each build into its own
 // library with the same C interface, so the builds run in parallel. Within
 // a build the variants are template instances: NE (counting edges per
-// launch) and COLS_BINNED.
+// launch) and COLS_BINNED. Kernels B and C are in the cumulative build only.
 //
 // Numerics: the arithmetic uses __fsub_rn / __fadd_rn / __fmul_rn and the
 // library is built with --fmad=false and without fast-math, so no FMA
@@ -688,6 +726,167 @@ __global__ void __launch_bounds__(kSegmentThreads) segment_sum_kernel(
     __syncthreads();
   }
 }
+
+// Kernel C (K2.1): see the note at the top.
+template <int NE, bool COLS_BINNED>
+__global__ void __launch_bounds__(kThreads) boundary_flags_kernel(
+    const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
+    const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
+    const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
+    const float* __restrict__ caps2,   // (N2, T / kChunk, kCapWidth)
+    const int* __restrict__ tile1,     // (P,) row tile of each pair
+    const int* __restrict__ tile2,     // (P,) column tile of each pair
+    const float* __restrict__ table,   // (B, E) thresholds
+    const float* __restrict__ band,    // (B, E) half-widths
+    int num_bins, int num_edges, int edge0, int num_group, int tile_size,
+    unsigned char* __restrict__ flags) {  // (P,)
+  const int num_chunks = tile_size / kChunk;
+  extern __shared__ float4 smem[];
+  float4* col_a = smem;              // (T)
+  float4* col_b = smem + tile_size;  // (T)
+  float4* cap_s = smem + 2 * tile_size;  // (T / kChunk, 2) column caps
+  float* thr_s = reinterpret_cast<float*>(cap_s + 2 * num_chunks);  // (B, NE)
+  float* band_s = thr_s + num_bins * NE;                              // (B, NE)
+  __shared__ int found;
+
+  const long long k = blockIdx.x;
+  // an earlier edge group flagged this entry (the whole block returns)
+  if (edge0 > 0 && flags[k]) return;
+  const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
+  const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
+  const float4* row_caps = reinterpret_cast<const float4*>(
+      caps1 + static_cast<long long>(tile1[k]) * num_chunks * kCapWidth);
+  const float4* col_caps = reinterpret_cast<const float4*>(
+      caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
+  stage_columns(cols, tile_size, col_a, col_b);
+  // edges beyond the group: t = band = -1, |chord2 + 1| <= -1 never holds
+  stage_thresholds<NE>(table, num_bins, num_edges, edge0, num_group, thr_s);
+  stage_thresholds<NE>(band, num_bins, num_edges, edge0, num_group, band_s);
+  for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
+    cap_s[i] = col_caps[i];
+  }
+  if (threadIdx.x == 0) found = 0;
+  __syncthreads();
+
+  const volatile int* seen = &found;
+  for (int base = 0; base < tile_size; base += blockDim.x) {
+    if (__any_sync(0xffffffffu, *seen != 0)) break;
+    // one row per thread: the warp's rows are one chunk, all of them
+    // valid or none (T is a multiple of kChunk)
+    const int row = base + threadIdx.x;
+    const bool valid = row < tile_size;
+    const int at = valid ? row : 0;
+    const float xh = rows[at];
+    const float yh = rows[tile_size + at];
+    const float zh = rows[2 * tile_size + at];
+    const float xl = rows[3 * tile_size + at];
+    const float yl = rows[4 * tile_size + at];
+    const float zl = rows[5 * tile_size + at];
+    const float w_row = rows[6 * tile_size + at];
+    const float zr = rows[7 * tile_size + at];
+    const bool row_ok = valid && w_row != 0.0f;
+    const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
+    float thr[NE];
+    float bnd[NE];
+    float largest = -1.0f;  // the row's largest t + band
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      thr[e] = thr_s[bin * NE + e];
+      bnd[e] = band_s[bin * NE + e];
+      largest = fmaxf(largest, __fadd_rn(thr[e], bnd[e]));
+    }
+    // the chunk reaches as far as its rows of nonzero weight
+    largest = row_ok ? largest : -1.0f;
+#pragma unroll
+    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+      largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
+    }
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 row_cap = valid ? row_caps[2 * (row / kChunk)] : none;
+    const float4 row_bins = valid ? row_caps[2 * (row / kChunk) + 1] : none;
+    // -inf for a chunk that can flag nothing
+    const float reach = largest < 0.0f ? -CUDART_INF_F
+                                       : __fadd_rn(sqrtf(largest), row_cap.w);
+
+    for (int chunk = 0; chunk < num_chunks; ++chunk) {
+      if (__any_sync(0xffffffffu, *seen != 0)) break;
+      bool keep = chunk_reaches(reach, row_cap, cap_s[2 * chunk]);
+      if constexpr (COLS_BINNED) {
+        const float4 col_bins = cap_s[2 * chunk + 1];
+        keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
+      }
+      if (!keep) continue;  // no pair of the chunk can hit
+      bool hit = false;
+      for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
+        const float4 a = col_a[j];
+        const float4 c = col_b[j];
+        // compensated difference: (hi1 - hi2) + (lo1 - lo2)
+        const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
+        const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
+        const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
+        float chord2 = __fmul_rn(dx, dx);
+        chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
+        chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
+
+        bool near = false;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          near = near || fabsf(__fsub_rn(chord2, thr[e])) <= bnd[e];
+        }
+        bool ok = a.w != 0.0f;
+        if constexpr (COLS_BINNED) {
+          ok = ok && c.w == zr;  // exact compare of the float bin lanes
+        }
+        hit = hit || (ok && near);
+      }
+      if (__any_sync(0xffffffffu, hit && row_ok)) {
+        if (threadIdx.x % kWarp == 0) found = 1;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) flags[k] = found ? 1 : 0;
+}
+
+struct FlagLaunch {
+  const float* lanes1;
+  const float* lanes2;
+  const float* caps1;
+  const float* caps2;
+  const int* tile1;
+  const int* tile2;
+  long long num_pairs;
+  const float* table;
+  const float* band;
+  int num_bins, num_edges, edge0, num_group, tile_size;
+  unsigned char* flags;
+  cudaStream_t stream;
+};
+
+template <int NE, bool COLS_BINNED>
+int launch_flags(const FlagLaunch& a) {
+  const size_t tile = static_cast<size_t>(a.tile_size);
+  const size_t smem = 2 * tile * sizeof(float4) +
+                      2 * (tile / kChunk) * sizeof(float4) +
+                      2 * static_cast<size_t>(a.num_bins) * NE * sizeof(float);
+  auto kernel = boundary_flags_kernel<NE, COLS_BINNED>;
+  const int status = prepare(kernel, smem);
+  if (status != 0) return status;
+  kernel<<<static_cast<unsigned int>(a.num_pairs), kThreads, smem, a.stream>>>(
+      a.lanes1, a.lanes2, a.caps1, a.caps2, a.tile1, a.tile2, a.table, a.band,
+      a.num_bins, a.num_edges, a.edge0, a.num_group, a.tile_size, a.flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool COLS_BINNED>
+int dispatch_flags(const FlagLaunch& a) {
+  if (a.num_group <= 1) return launch_flags<1, COLS_BINNED>(a);
+  if (a.num_group <= 2) return launch_flags<2, COLS_BINNED>(a);
+  if (a.num_group <= 4) return launch_flags<4, COLS_BINNED>(a);
+  if (a.num_group <= 8) return launch_flags<8, COLS_BINNED>(a);
+  return launch_flags<16, COLS_BINNED>(a);
+}
 #endif
 
 }  // namespace
@@ -732,6 +931,26 @@ int yawt_paircount_partials(const float* lanes1, const float* lanes2,
 }
 
 #if YAWT_DIRECT == 0
+// One launch of kernel C (the audit's flag pass) for the edges [edge0, edge0
+// + num_group) of the (num_bins, num_edges) float32 table and band, 1 <=
+// num_group <= 16, into the (num_pairs,) bytes flags (0 or 1; a launch with
+// edge0 > 0 keeps the entries an earlier group set). caps1 / caps2 as for
+// yawt_paircount_partials. Returns cudaGetLastError() after the launch, the
+// error of raising the kernel's shared-memory limit, or -1 when the tile and
+// table need more shared memory than one block may have.
+int yawt_boundary_flags(const float* lanes1, const float* lanes2,
+                        const float* caps1, const float* caps2,
+                        const int* tile1, const int* tile2,
+                        long long num_pairs, const float* table,
+                        const float* band, int num_bins, int num_edges,
+                        int edge0, int num_group, int tile_size,
+                        int cols_binned, unsigned char* flags, void* stream) {
+  const FlagLaunch a{lanes1, lanes2, caps1, caps2, tile1, tile2, num_pairs,
+                     table, band, num_bins, num_edges, edge0, num_group,
+                     tile_size, flags, static_cast<cudaStream_t>(stream)};
+  return cols_binned ? dispatch_flags<true>(a) : dispatch_flags<false>(a);
+}
+
 // One launch of kernel B. Returns cudaGetLastError() after the launch.
 int yawt_segment_sum(const float* partial, const long long* offsets,
                      long long num_slots, int width, float* out, void* stream) {

@@ -8,7 +8,11 @@ _paircount_kernel`` in all of its variants (ROADMAP K1.1-K1.5):
   cumulatively or with direct separation weights (small-angle or arcsine
   index), against unbinned or binned columns;
 - ``segment_sum`` (kernel B) sums each slot's contiguous run of partials
-  into ``out[slot]``.
+  into ``out[slot]``;
+- ``boundary_flags_cuda`` (kernel C) is the exactness audit's flag pass
+  (ROADMAP K2.1, which the JAX package runs in XLA): one flag per tile pair,
+  set when a valid pair lies within the audit band of an edge of its row's
+  bin.
 
 Together they are deterministic: no float atomics, a summation order fixed
 by the shapes alone. Kernel A is bound by float32 issue: the compensated
@@ -43,11 +47,20 @@ fixed pairwise tree (group ``g`` adds group ``g + h`` for ``h = 1, 2, 4,
 length; it is not list order, which the plain version follows on the CPU.
 Two runs are bitwise equal.
 
+Kernel C is kernel A's cumulative structure with less work per pair and
+nothing to reduce: it skips the column chunks out of reach of a row chunk
+widened by the band (``t + band`` for ``t``; the plain mirror is
+``chunk_keep_mask`` with a band table) and ends a tile pair at its first
+hit. Its flags are bit for bit those of the plain version,
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags_torch`.
+
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use, once per
 counting mode and in parallel, into ``build/yawt_torch_kernels/`` and
 loaded with ``ctypes``. A wrapper given CPU tensors runs the kernel's
 plain PyTorch version from :mod:`.paircount` instead; on a CUDA tensor it
-launches the kernel or raises. Each launch adds one to the variant's entry
+launches the kernel or raises (kernel C's wrapper takes CUDA tensors only:
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags` picks the
+plain version for the CPU). Each launch adds one to the variant's entry
 of :data:`launch_counts`.
 """
 
@@ -80,6 +93,7 @@ if TYPE_CHECKING:
 
 __all__ = [
     "SOURCE",
+    "boundary_flags_cuda",
     "build",
     "count_pairs_cuda",
     "launch_counts",
@@ -109,8 +123,8 @@ accumulators are sized at compile time); wider tables take one launch per
 group."""
 
 _SHARED_MEMORY_EXCEEDED = -1
-"""Status of a kernel-A launch that needs more shared memory than one block
-may have."""
+"""Status of a kernel-A or kernel-C launch that needs more shared memory
+than one block may have."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
@@ -138,6 +152,7 @@ launch_counts = {
         "paircount_partials_arcsine",
         "paircount_partials_arcsine_binned",
         "paircount_segment_sum",
+        "boundary_flags",
     )
 }
 """Kernel launches in this process, by kernel variant."""
@@ -169,6 +184,11 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
     if mode == 0:
         lib.yawt_segment_sum.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
         lib.yawt_segment_sum.restype = i32
+        lib.yawt_boundary_flags.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, ptr, ptr,
+        ]
+        lib.yawt_boundary_flags.restype = i32
     return lib
 
 
@@ -404,6 +424,70 @@ def segment_sum(
         _raise_on_error(status, "segment_sum")
         launch_counts["paircount_segment_sum"] += 1
     return out
+
+
+def boundary_flags_cuda(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+) -> torch.Tensor:
+    """``(P,)`` bool on the card: does any valid pair of tile pair
+    ``(tile1[k], tile2[k])`` lie within ``band_table`` of a threshold of
+    its row's bin (kernel C, the audit's flag pass)? ``lanes*`` are ``(N,
+    8, T)`` float32 tiles on a CUDA device (``T`` a multiple of 32: the
+    kernel reads the lanes' chunk caps, :func:`_device_caps`), ``tile*``
+    int32 indices, ``chord2_table`` and ``band_table`` ``(B, E)``
+    float32. One launch per group of 16 edges, on the current stream,
+    without synchronising. Raises for tensors the kernel does not take."""
+    device = lanes1.device
+    if device.type != "cuda":
+        raise ValueError(f"the flag kernel needs CUDA tensors, got {device}")
+    _check(lanes1, "lanes1", torch.float32, 3, device)
+    _check(lanes2, "lanes2", torch.float32, 3, device)
+    _check(tile1, "tile1", torch.int32, 1, device)
+    _check(tile2, "tile2", torch.int32, 1, device)
+    _check(chord2_table, "chord2_table", torch.float32, 2, device)
+    _check(band_table, "band_table", torch.float32, 2, device)
+    _, channels, tile_size = lanes1.shape
+    if channels != 8 or tuple(lanes2.shape[1:]) != (8, tile_size):
+        raise ValueError("lanes must be (N, 8, T) with one tile size T")
+    if tile1.shape != tile2.shape:
+        raise ValueError("'tile1' and 'tile2' differ in length")
+    if band_table.shape != chord2_table.shape:
+        raise ValueError("'band_table' and 'chord2_table' differ in shape")
+    num_pairs = len(tile1)
+    num_bins, num_edges = chord2_table.shape
+    caps1, caps2 = _device_caps(lanes1), _device_caps(lanes2)
+    flags = torch.empty(num_pairs, dtype=torch.bool, device=device)
+    if num_pairs == 0:
+        return flags
+
+    build()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for edge0 in range(0, num_edges, MAX_EDGES_PER_LAUNCH):
+            status = _libs[0].yawt_boundary_flags(
+                lanes1.data_ptr(), lanes2.data_ptr(), caps1.data_ptr(),
+                caps2.data_ptr(), tile1.data_ptr(), tile2.data_ptr(),
+                num_pairs, chord2_table.data_ptr(), band_table.data_ptr(),
+                num_bins, num_edges, edge0,
+                min(MAX_EDGES_PER_LAUNCH, num_edges - edge0), tile_size,
+                int(cols_binned), flags.data_ptr(), stream,
+            )
+            if status == _SHARED_MEMORY_EXCEEDED:
+                raise ValueError(
+                    f"boundary_flags: tiles of {tile_size} points with "
+                    f"{num_bins} bins need more shared memory than one block "
+                    "of this card has"
+                )
+            _raise_on_error(status, "boundary_flags")
+            launch_counts["boundary_flags"] += 1
+    return flags
 
 
 class _PairIndex:

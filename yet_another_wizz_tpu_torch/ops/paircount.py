@@ -28,10 +28,11 @@ Execution paths of :func:`count_pairs_tiles`:
 - ``oracle``: float64 scipy kd-trees on the host, for validation.
 
 With ``audit=True`` the counts pass through :func:`audit_boundary_counts`:
-a flag pass on the device (:func:`boundary_flags`, torch ops in the
-kernels' chord arithmetic) marks every tile pair holding a pair within
-float32 resolution of a threshold of its bin, and the flagged patch-pair
-slots are recounted in float64 by the oracle.
+a flag pass on the device (:func:`boundary_flags`: the CUDA flag kernel on
+the card, its plain version :func:`boundary_flags_torch` on the CPU, both
+in the kernels' chord arithmetic) marks every tile pair holding a pair
+within float32 resolution of a threshold of its bin, and the flagged
+patch-pair slots are recounted in float64 by the oracle.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ __all__ = [
     "audit_band",
     "audit_boundary_counts",
     "boundary_flags",
+    "boundary_flags_torch",
     "chunk_keep_mask",
     "count_pairs_tiles",
     "count_pairs_torch",
@@ -230,6 +232,7 @@ def chunk_keep_mask(
     chord2_table: torch.Tensor,
     *,
     cols_binned: bool = False,
+    band_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``(P, K, K)`` bool, ``K = T / 32``: the (row chunk, column chunk)
     blocks of each tile pair that the cumulative CUDA kernel evaluates, in
@@ -239,12 +242,17 @@ def chunk_keep_mask(
     ``chord2_table`` one launch's edges. A row chunk reaches as far
     as the largest threshold of its rows of nonzero weight; a block is
     dropped when the caps lie farther apart than the radii plus that
-    chord or, with binned columns, when their bin ranges are disjoint. The
-    plain engine (:func:`pair_block_counts`) evaluates every pair; this
-    mirror serves the tests and the chip smoke run's kept share."""
+    chord or, with binned columns, when their bin ranges are disjoint.
+    With ``band_table`` (``(B, E)`` float32) each threshold is widened to
+    ``t + band`` (a float32 sum), the reach of the flag kernel. The
+    plain engine (:func:`pair_block_counts`) and the plain flag pass
+    evaluate every pair; this mirror serves the tests and the chip smoke
+    run's kept share."""
     tile1, tile2 = tile1.long(), tile2.long()
     num_tiles, _, tile_size = lanes1.shape
     bins = lanes1[:, CHANNEL_ZBIN].long().clamp(0, chord2_table.shape[0] - 1)
+    if band_table is not None:
+        chord2_table = chord2_table + band_table
     largest = chord2_table.amax(dim=1)[bins]  # (N1, T)
     largest = torch.where(lanes1[:, CHANNEL_WEIGHT] != 0, largest, -1.0)
     largest = largest.view(num_tiles, tile_size // CHUNK_SIZE, CHUNK_SIZE)
@@ -313,10 +321,9 @@ AUDIT_WINDOW_BYTES = 256 << 20
 """Gathered lane bytes per window of the streaming flag pass."""
 
 AUDIT_CHUNK_SIZE = 64
-"""Tile pairs per batch of the flag pass: a few ``(64, T, T)``
-temporaries, 64 MiB each in float32 at T = 512. The JAX package batches
-16; on the card, larger batches cut the per-operation launch cost of the
-torch ops."""
+"""Tile pairs per batch of the plain flag pass (:func:`boundary_flags_torch`):
+a few ``(64, T, T)`` temporaries, 64 MiB each in float32 at T = 512. The
+JAX package batches 16."""
 
 AUDIT_STATS: list[dict] = []
 """One record per call of :func:`audit_boundary_counts` in this process
@@ -383,7 +390,7 @@ def pair_block_boundary(
     return (hit & valid).flatten(1).any(dim=1)
 
 
-def boundary_flags(
+def boundary_flags_torch(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
     tile1: torch.Tensor,
@@ -396,7 +403,8 @@ def boundary_flags(
 ) -> torch.Tensor:
     """``(P,)`` bool on the lanes' device: :func:`pair_block_boundary` of
     every tile pair ``(tile1[k], tile2[k])``, in batches of ``chunk_size``
-    tile pairs (the JAX package's ``_boundary_flags_xla``)."""
+    tile pairs (the JAX package's ``_boundary_flags_xla``): the plain
+    version of the CUDA flag kernel, which evaluates every pair."""
     flags = torch.empty(len(tile1), dtype=torch.bool, device=lanes1.device)
     for start in range(0, len(tile1), chunk_size):
         stop = start + chunk_size
@@ -407,19 +415,56 @@ def boundary_flags(
     return flags
 
 
+def boundary_flags(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    chunk_size: int = AUDIT_CHUNK_SIZE,
+) -> torch.Tensor:
+    """``(P,)`` bool on the lanes' device: the flag of every tile pair
+    ``(tile1[k], tile2[k])``. CPU tensors take the plain version
+    (:func:`boundary_flags_torch`, in batches of ``chunk_size``), CUDA
+    tensors the flag kernel
+    (:func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.boundary_flags_cuda`,
+    int32 indices); any other device raises."""
+    if lanes1.device.type == "cpu":
+        return boundary_flags_torch(
+            lanes1, lanes2, tile1.long(), tile2.long(), chord2_table,
+            band_table, cols_binned=cols_binned, chunk_size=chunk_size,
+        )
+    if lanes1.device.type != "cuda":
+        raise ValueError(f"no flag pass for device {lanes1.device}")
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import (
+        boundary_flags_cuda,
+    )
+
+    return boundary_flags_cuda(
+        lanes1, lanes2, tile1, tile2, chord2_table, band_table,
+        cols_binned=cols_binned,
+    )
+
+
 def _flag_pass(tiles1, tiles2, pairs, table, band, device, chunk_size):
     """The flags of every tile pair of ``pairs``, as numpy bool. Tile sets
-    up to :data:`AUDIT_RESIDENT_BYTES` are read from their uploaded lanes;
-    larger ones stream windows of host-gathered lanes (the JAX package's
-    ``_boundary_flags_gathered``), so the device holds about
-    :data:`AUDIT_WINDOW_BYTES` of lanes at a time."""
+    up to :data:`AUDIT_RESIDENT_BYTES` are read from their uploaded lanes
+    by the pair list's cached int32 indices; larger ones stream windows of
+    host-gathered lanes (the JAX package's ``_boundary_flags_gathered``),
+    indexed by the window's ``arange``, so the device holds about
+    :data:`AUDIT_WINDOW_BYTES` of lanes (and their chunk caps, on the card)
+    at a time."""
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import _pair_index
+
     cols_binned = tiles2.binned
     if tiles1.lane_data.nbytes + tiles2.lane_data.nbytes <= AUDIT_RESIDENT_BYTES:
-        index1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
-        index2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
+        index = _pair_index(pairs, device)
         return boundary_flags(
             tiles1.device_data(device), tiles2.device_data(device),
-            index1, index2, table, band,
+            index.tile1, index.tile2, table, band,
             cols_binned=cols_binned, chunk_size=chunk_size,
         ).cpu().numpy()
     per_pair = tiles1.lane_data[0].nbytes + tiles2.lane_data[0].nbytes
@@ -431,7 +476,7 @@ def _flag_pass(tiles1, tiles2, pairs, table, band, device, chunk_size):
         stop = min(start + window, pairs.num_pairs)
         lanes1 = torch.from_numpy(tiles1.lane_data[pairs.tile1[start:stop]])
         lanes2 = torch.from_numpy(tiles2.lane_data[pairs.tile2[start:stop]])
-        local = torch.arange(stop - start, device=device)
+        local = torch.arange(stop - start, dtype=torch.int32, device=device)
         flags[start:stop] = boundary_flags(
             lanes1.to(device), lanes2.to(device), local, local, table, band,
             cols_binned=cols_binned, chunk_size=chunk_size,
