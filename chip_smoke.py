@@ -355,7 +355,8 @@ def ptxas_summary(compiler_log: str) -> list[str]:
     variant = re.compile(
         r"paircount_(?:partials|direct)_kernelILi(\d+)ELb([01])E(?:Li(\d+)E)?"
     )
-    flags = re.compile(r"boundary_flags_kernelILi(\d+)ELb([01])E")
+    evaluate = re.compile(r"flag_evaluate_kernelILi(\d+)ELb([01])E")
+    triage = re.compile(r"flag_triage_kernelILb([01])E")
     for line in compiler_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
@@ -364,9 +365,13 @@ def ptxas_summary(compiler_log: str) -> list[str]:
             if match:
                 ne, binned, direct = match.groups()
                 name = f"A<NE={ne}, binned={binned}, direct={direct or 0}>"
-            elif flags.search(name):
-                ne, binned = flags.search(name).groups()
-                name = f"C flags<NE={ne}, binned={binned}>"
+            elif evaluate.search(name):
+                ne, binned = evaluate.search(name).groups()
+                name = f"C2 flag evaluate<NE={ne}, binned={binned}>"
+            elif triage.search(name):
+                name = f"C1 flag triage<binned={triage.search(name).group(1)}>"
+            elif "flag_reach_kernel" in name:
+                name = "C0 flag reach"
             elif "segment_sum" in name:
                 name = "B segment_sum"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -749,22 +754,29 @@ def segment_check(card, label, partial, pairs, *, double_reference=False):
 def flag_check(card, links, catalogs, count) -> dict:
     """The flag kernel (K2.1) against the plain flag pass on the full pair
     list of one count, with the audit's band (``audit_band`` of the union
-    edges): bit for bit, two kernel runs equal; the kernel's milliseconds
-    (median of :data:`KERNEL_REPS`) and the plain version's (one run); the
-    every-pair bound (every candidate pair at 16 + 3E float32 operations)
-    and the reach bound (the ``bound_ms`` of the result: 16 + 3E operations
-    for each valid pair within its row's widened reach, the largest ``t +
-    band`` of its bin, in the tile pairs the kernel does not flag, and one
-    pair for each it flags); the share of chunk blocks the widened skip
-    keeps (``chunk_keep_mask`` with the band) and of tile pairs flagged."""
+    edges): bit for bit, two kernel runs equal; the pass's milliseconds
+    (its three launches, median of :data:`KERNEL_REPS`) and the plain
+    version's (one run); the every-pair bound (every candidate pair at 16
+    + 3E float32 operations) and the reach bound (the ``bound_ms`` of the
+    result: 16 + 3E operations for each valid pair within its row's
+    widened reach, the largest ``t + band`` of its bin, in the tile pairs
+    the kernel does not flag, and one pair for each it flags); the share
+    of chunk blocks the widened skip keeps (``chunk_keep_mask`` with the
+    band), the work items and the tile pairs triaged to 0, and of tile
+    pairs flagged. Its first two launches alone, the reach (C0) and the
+    triage (C1), equal their plain mirrors on the CPU (``chunk_reach``
+    bitwise, ``flag_work_items`` as a set of items) and are timed in CUDA
+    graphs. Returns the results of the three, by launch-count key."""
     import numpy as np
     import torch
 
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
     from yet_another_wizz_tpu_torch.ops.paircount import (
         audit_band,
         boundary_flags,
         boundary_flags_torch,
-        chunk_keep_mask,
+        chunk_reach,
+        flag_work_items,
         partial_counts_torch,
     )
     from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
@@ -812,26 +824,88 @@ def flag_check(card, links, catalogs, count) -> dict:
     ).double().sum(dim=(1, 2))
     needed = in_reach[~first].sum().item() + first.sum().item()
     bound_ms, bound_by = bound(needed * per_pair, num_bytes)
-    kept = chunk_keep_mask(
-        lanes1, chunk_caps(lanes1), chunk_caps(lanes2), tile1, tile2, table,
-        cols_binned=cols_binned, band_table=band,
-    ).double().mean().item()
+
+    # C0 and C1 alone against their mirrors on the CPU (the first group of
+    # 16 edges: the table has fewer)
+    check(table.shape[1] <= cuda_paircount.MAX_EDGES_PER_LAUNCH,
+          f"{count}: more than one group of edges")
+    host = [t.cpu() for t in (lanes1, lanes2, tile1, tile2, table, band)]
+    caps1, caps2 = chunk_caps(host[0]), chunk_caps(host[1])
+    row_reach = cuda_paircount.flag_reach_cuda(lanes1, table, band)
+    check(torch.equal(row_reach.cpu(), chunk_reach(host[0], caps1, *host[4:])),
+          f"flag reach [{count}] differs from chunk_reach")
+    items, length = cuda_paircount.flag_triage_cuda(
+        lanes1, lanes2, tile1, tile2, row_reach, cols_binned=cols_binned
+    )
+    work = cuda_paircount.decode_work_items(items, length)
+    check(torch.equal(work, flag_work_items(
+        host[0], caps1, caps2, *host[2:], cols_binned=cols_binned)),
+        f"flag triage [{count}] differs from flag_work_items")
+    num_chunks = tiles1.tile_size // 32
+    kept = sum(bin(mask).count("1") for mask in work[:, 2].tolist())
+    kept_share = kept / (num_pairs * num_chunks**2)
+    idle = num_pairs - len(torch.unique(work[:, 0]))
+    ms = cuda_ms(kernel, KERNEL_REPS)
+    reach_ms = graph_ms(
+        lambda: cuda_paircount.flag_reach_cuda(lanes1, table, band)
+    )
+    triage_ms = graph_ms(lambda: cuda_paircount.flag_triage_cuda(
+        lanes1, lanes2, tile1, tile2, row_reach, cols_binned=cols_binned
+    ))
+    caps_dev = cuda_paircount._device_caps(lanes1), cuda_paircount._device_caps(lanes2)
+    # C0 reads two lanes of every row and a radius per chunk, writes a reach
+    # per chunk; C1 reads both tile sets' caps, the reach and the tile
+    # indices once and writes its items, 12 float32 operations per chunk
+    # block (13 with binned columns: the bin ranges)
+    reach_bytes = (lanes1.numel() // 4 + 2 * row_reach.numel()) * 4 + nbytes(table, band)
+    reach_bound = bound(lanes1.shape[0] * tiles1.tile_size * 2 * table.shape[1],
+                        reach_bytes)
+    triage_bound = bound(
+        num_pairs * num_chunks**2 * (13 if cols_binned else 12),
+        nbytes(*caps_dev, row_reach, tile1, tile2) + 8 * len(work),
+    )
+    plain_reach_ms = cuda_ms(lambda: chunk_reach(lanes1, caps_dev[0], table, band), 1)
+    plain_triage_ms = cuda_ms(lambda: flag_work_items(
+        lanes1, *caps_dev, tile1, tile2, table, band, cols_binned=cols_binned
+    ), 1)
     result = dict(
         name="boundary_flags", count=count, tile_pairs=num_pairs,
-        err=(0.0, 0.0), ms=cuda_ms(kernel, KERNEL_REPS),
-        plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, replaces=FLAGS_REPLACE,
+        err=(0.0, 0.0), ms=ms, plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, replaces=FLAGS_REPLACE,
     )
     log(f"[{card}] boundary_flags [{count}, all {num_pairs} tile pairs, table "
         f"{tuple(table.shape)}, binned columns {cols_binned}]: kernel "
-        f"{result['ms']:.4f} ms, plain {result['plain_ms']:.1f} ms, reach "
+        f"{ms:.4f} ms (reach + triage + evaluation), plain "
+        f"{result['plain_ms']:.1f} ms, reach "
         f"bound {bound_ms:.4f} ms ({bound_by}; pairs in the widened reach "
         f"{in_reach.sum().item() / candidates:.4f} of the candidates, "
         f"{needed / candidates:.4f} needed), every-pair bound "
-        f"{every_pair_ms:.3f} ms, chunk blocks kept {kept:.4f}, tile pairs "
-        f"flagged {int(first.sum())} ({first.double().mean().item():.4f}), "
+        f"{every_pair_ms:.3f} ms, chunk blocks kept {kept_share:.4f} (reach "
+        f"rule), work items {len(work)} ({len(work) / num_pairs:.2f} per tile "
+        f"pair), tile pairs triaged to 0 {idle} ({idle / num_pairs:.4f}), tile "
+        f"pairs flagged {int(first.sum())} ({first.double().mean().item():.4f}), "
         "bit for bit the plain flag pass, two kernel runs equal")
-    return result
+    log(f"[{card}] flag reach (C0) [{count}, {row_reach.numel()} row chunks]: "
+        f"{reach_ms:.4f} ms (CUDA graphs), plain {plain_reach_ms:.3f} ms, bound "
+        f"{reach_bound[0]:.5f} ms ({reach_bound[1]}), bitwise chunk_reach; "
+        f"flag triage (C1): {triage_ms:.4f} ms (with its counters' zeroing), "
+        f"plain {plain_triage_ms:.2f} ms, bound {triage_bound[0]:.5f} ms "
+        f"({triage_bound[1]}), the items of flag_work_items")
+    common = dict(count=count, err=(0.0, 0.0), library_ms=None,
+                  replaces=FLAGS_REPLACE)
+    return {
+        "boundary_flags": result,
+        "boundary_flags_reach": dict(
+            common, name="boundary_flags_reach", ms=reach_ms,
+            plain_ms=plain_reach_ms, bound_ms=reach_bound[0],
+            bound_by=reach_bound[1],
+        ),
+        "boundary_flags_triage": dict(
+            common, name="boundary_flags_triage", ms=triage_ms,
+            plain_ms=plain_triage_ms, bound_ms=triage_bound[0],
+            bound_by=triage_bound[1],
+        ),
+    }
 
 
 def kernels_vs_plain(card, catalogs, configs) -> dict:
@@ -911,9 +985,7 @@ def kernels_vs_plain(card, catalogs, configs) -> dict:
     check(result["name"] == "paircount_partials_direct",
           f"the many-scale cross DD ran {result['name']}")
     # the flag kernel (K2.1) on the headline's DD and RD and w_ss DD lists
-    results["boundary_flags"] = flag_check(
-        card, links["headline"], catalogs, "cross DD"
-    )
+    results.update(flag_check(card, links["headline"], catalogs, "cross DD"))
     for count in ("cross RD", "auto DD"):
         flag_check(card, links["headline"], catalogs, count)
     return results
@@ -1187,6 +1259,7 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         crosscorrelate,
     )
     from yet_another_wizz_tpu_torch.ops import paircount
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import FLAG_KERNELS
     from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE
 
     reference, unknown, randoms = catalogs
@@ -1203,7 +1276,7 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         (corr,), _ = run_path(
             "audit (crosscorrelate, audit=True)", audited,
             {"paircount_partials": 2, "paircount_segment_sum": 2,
-             "boundary_flags": 2},
+             **dict.fromkeys(FLAG_KERNELS, 2)},
             launches_total,
         )
     check(plain_calls[0] == 0, "audit: the plain flag pass ran on the card")
@@ -1270,6 +1343,7 @@ def audit_flip(card, launches_total) -> None:
     import numpy as np
 
     from yet_another_wizz_tpu_torch.ops.cpu_oracle import count_pairs_oracle
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import FLAG_KERNELS
     from yet_another_wizz_tpu_torch.ops.paircount import count_pairs_tiles
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1294,7 +1368,7 @@ def audit_flip(card, launches_total) -> None:
             "audit flip (engineered on-edge pair)",
             lambda: (count(False), count(True)),
             {"paircount_partials": 2, "paircount_segment_sum": 2,
-             "boundary_flags": 1},
+             **dict.fromkeys(FLAG_KERNELS, 1)},
             launches_total,
         )
     check(plain_calls[0] == 0, "audit flip: the plain flag pass ran on the card")
@@ -1323,6 +1397,7 @@ def audit_blocked(card, config, launches_total) -> None:
     from yet_another_wizz_tpu_torch.correlation.measurements import autocorrelate
     from yet_another_wizz_tpu_torch.examples import generate_mock_data
     from yet_another_wizz_tpu_torch.ops import paircount
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import FLAG_KERNELS
 
     def flagged() -> int:
         return sum(len(stats["flagged_slots"]) for stats in paircount.AUDIT_STATS)
@@ -1358,7 +1433,7 @@ def audit_blocked(card, config, launches_total) -> None:
             f"{AUDIT_RESIDENT})",
             blocked_run,
             {"paircount_partials_binned": 3, "paircount_segment_sum": 3,
-             "boundary_flags": 3},
+             **dict.fromkeys(FLAG_KERNELS, 3)},
             launches_total,
         )
     t_blocked = time.perf_counter() - t0
@@ -2036,6 +2111,7 @@ def audit_survey(card) -> None:
     from yet_another_wizz_tpu_torch.config import Configuration
     from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
     from yet_another_wizz_tpu_torch.ops import paircount
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import FLAG_KERNELS
 
     config = Configuration.create(**CONFIG)
     root = tempfile.mkdtemp(prefix="yawt_audit_survey_")
@@ -2053,7 +2129,7 @@ def audit_survey(card) -> None:
                 "survey audit (blocked crosscorrelate, audit=True)",
                 lambda: survey_run(config, catalogs, audit=True),
                 {"paircount_partials": 1, "paircount_segment_sum": 1,
-                 "boundary_flags": 1},
+                 **dict.fromkeys(FLAG_KERNELS, 1)},
                 {},
             )
         t_audit = time.perf_counter() - t0

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's cumulative pair-count kernel (K1.1 / K1.2) against an
-earlier source of it, in one call on one NVIDIA card.
+"""Time the port's cumulative pair-count kernel (K1.1 / K1.2) or its flag
+kernel (K2.1, kernel C) against an earlier source of it, in one call on one
+NVIDIA card.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 scripts/torch_cumulative_variants.py --parent OLD.cu
+    python3 scripts/torch_cumulative_variants.py --parent OLD.cu [--kernel flags]
 
 It builds ``yet_another_wizz_tpu_torch/csrc/paircount.cu`` and ``OLD.cu``
 in cumulative mode, one ``nvcc`` each, together. A library that exports
@@ -21,6 +22,24 @@ both on the full headline DD and RD lists (K1.1) and the w_ss DD list
 (K1.2) with CUDA events, in turns (parent, shipped, shipped, parent). It
 prints the card's name and power limit and each build's ptxas summary; it
 exits non-zero on any disagreement.
+
+With ``--kernel flags`` it times kernel C instead. A library that exports
+``yawt_flag_reach`` has the current flag interface (reach, triage and
+evaluation, a workspace from the caller) and runs through
+``cuda_paircount.boundary_flags_cuda``; one without it has the interface
+of one launch per tile pair, from before the work list, and is bound as
+such. On the full headline DD and RD lists and the w_ss DD list, with the
+audit's band, it checks both builds bit for bit against
+``boundary_flags_torch`` and times
+them in turns, with CUDA events around each call (what a caller waits for,
+the host's launch gaps included) and as replays of CUDA graphs of
+:data:`GRAPH_CALLS` calls (the device alone); then it runs the blocked
+audit of ``chip_smoke.py::audit_blocked`` (``autocorrelate(audit=True,
+max_resident_patches=16)`` on 100k + 500k points) once per build in turns
+and prints each build's flag passes and their milliseconds on the card,
+which must flag the same slots; last it replays those flag passes alone,
+per build in turns, summed over the passes: events around each call and
+CUDA graphs of each.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ import chip_smoke  # noqa: E402
 
 COUNTS = ("cross DD", "cross RD", "auto DD")
 REPS = 5
+GRAPH_CALLS = 10
 
 
 def build(name: str, source: Path) -> tuple[Path, str]:
@@ -107,10 +127,241 @@ def launcher(target: Path):
     return run_without_caps
 
 
+def flag_launcher(target: Path):
+    """``run(lanes1, lanes2, tile1, tile2, table, band, cols_binned)``,
+    the flags of a library's kernel C through its C interface: the current
+    one (through the wrapper), or the one-launch interface from before the
+    work list (through a replay of that source's wrapper)."""
+    import torch
+
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+
+    if hasattr(ctypes.CDLL(str(target)), "yawt_flag_reach"):
+        lib = cuda_paircount._load(target, 0)
+
+        def run(lanes1, lanes2, tile1, tile2, table, band, cols_binned):
+            cuda_paircount._libs[0] = lib
+            return cuda_paircount.boundary_flags_cuda(
+                lanes1, lanes2, tile1, tile2, table, band,
+                cols_binned=cols_binned,
+            )
+
+        return run
+
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = ctypes.CDLL(str(target)).yawt_boundary_flags
+    fn.argtypes = [ptr] * 6 + [i64, ptr, ptr] + [i32] * 6 + [ptr, ptr]
+    fn.restype = i32
+    check = cuda_paircount._check
+
+    def run_one_launch(lanes1, lanes2, tile1, tile2, table, band, cols_binned):
+        # the one-launch source's boundary_flags_cuda, its checks included,
+        # so that both builds pay the same host work around their launches
+        device = lanes1.device
+        check(lanes1, "lanes1", torch.float32, 3, device)
+        check(lanes2, "lanes2", torch.float32, 3, device)
+        check(tile1, "tile1", torch.int32, 1, device)
+        check(tile2, "tile2", torch.int32, 1, device)
+        check(table, "chord2_table", torch.float32, 2, device)
+        check(band, "band_table", torch.float32, 2, device)
+        _, channels, tile_size = lanes1.shape
+        chip_smoke.check(
+            channels == 8 and tuple(lanes2.shape[1:]) == (8, tile_size)
+            and tile1.shape == tile2.shape and band.shape == table.shape,
+            "inputs the flag kernel does not take",
+        )
+        num_pairs = len(tile1)
+        num_bins, num_edges = table.shape
+        caps1 = cuda_paircount._device_caps(lanes1)
+        caps2 = cuda_paircount._device_caps(lanes2)
+        flags = torch.empty(num_pairs, dtype=torch.bool, device=device)
+        cuda_paircount.build()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for edge0 in range(0, num_edges, cuda_paircount.MAX_EDGES_PER_LAUNCH):
+                status = fn(
+                    lanes1.data_ptr(), lanes2.data_ptr(), caps1.data_ptr(),
+                    caps2.data_ptr(), tile1.data_ptr(), tile2.data_ptr(),
+                    num_pairs, table.data_ptr(), band.data_ptr(), num_bins,
+                    num_edges, edge0,
+                    min(cuda_paircount.MAX_EDGES_PER_LAUNCH, num_edges - edge0),
+                    tile_size, int(cols_binned), flags.data_ptr(), stream,
+                )
+                chip_smoke.check(
+                    status == 0, f"launch failed with CUDA error {status}"
+                )
+        return flags
+
+    return run_one_launch
+
+
+def blocked_catalogs() -> tuple:
+    """The data and random catalogs of ``chip_smoke.py::audit_blocked``."""
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+
+    mock = generate_mock_data(
+        num_reference=chip_smoke.NUM_REFERENCE // chip_smoke.AUDIT_CUT,
+        num_unknown=1,
+        num_randoms=chip_smoke.NUM_RANDOMS // chip_smoke.AUDIT_CUT,
+        seed=chip_smoke.SEED,
+    )
+    data = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=chip_smoke.NUM_PATCHES,
+        device="cuda",
+    )
+    random = Catalog.from_arrays(
+        **mock["randoms"], degrees=False, patch_centers=data.get_centers(),
+        device="cuda",
+    )
+    return data, random
+
+
+def blocked_audit(run, catalogs, lists: list | None = None) -> tuple[list, float]:
+    """The blocked audit of ``chip_smoke.py::audit_blocked`` on
+    ``catalogs`` with the flag pass through ``run``: its audit records and
+    their flag milliseconds on the card. With ``lists``, the flag passes'
+    inputs are appended to it."""
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import autocorrelate
+    from yet_another_wizz_tpu_torch.ops import paircount
+
+    dispatch = paircount.boundary_flags
+
+    def flags(lanes1, lanes2, tile1, tile2, table, band, *, cols_binned=False,
+              chunk_size=None):
+        if lists is not None:
+            lists.append((lanes1, lanes2, tile1, tile2, table, band, cols_binned))
+        return run(lanes1, lanes2, tile1, tile2, table, band, cols_binned)
+
+    paircount.boundary_flags = flags
+    paircount.reset_audit_stats()
+    try:
+        autocorrelate(
+            Configuration.create(**chip_smoke.CONFIG), *catalogs,
+            device="cuda", audit=True, max_workers=len(os.sched_getaffinity(0)),
+            max_resident_patches=chip_smoke.AUDIT_RESIDENT,
+        )
+    finally:
+        paircount.boundary_flags = dispatch
+    stats = list(paircount.AUDIT_STATS)
+    return stats, sum(record["flag_ms"] for record in stats)
+
+
+def time_flags(card: str, runs: dict) -> None:
+    """Kernel C of both builds on the three lists and in the blocked
+    audit, in turns."""
+    import numpy as np
+    import torch
+
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import PatchLinkage
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        audit_band,
+        boundary_flags_torch,
+    )
+
+    catalogs, _ = chip_smoke.make_catalogs()
+    links = PatchLinkage.from_catalogs(
+        Configuration.create(**chip_smoke.CONFIG), *catalogs
+    )
+    device = torch.device("cuda")
+    table_np = np.ascontiguousarray(links.edges.chord2_table, np.float32)
+    table = torch.from_numpy(table_np).to(device)
+    band = torch.from_numpy(
+        audit_band(links.edges.edges, table_np).astype(np.float32)
+    ).to(device)
+    order = [*runs, *reversed(runs)]
+    for count in COUNTS:
+        tiles1, tiles2, pairs = chip_smoke.engine_inputs(links, catalogs, count)
+        binned = tiles2.binned
+        args = (
+            tiles1.device_data(device), tiles2.device_data(device),
+            torch.from_numpy(pairs.tile1.astype(np.int32)).to(device),
+            torch.from_numpy(pairs.tile2.astype(np.int32)).to(device),
+            table, band,
+        )
+        plain = boundary_flags_torch(
+            *args[:2], args[2].long(), args[3].long(), *args[4:],
+            cols_binned=binned,
+        )
+        for name, run in runs.items():
+            flags = run(*args, binned)
+            torch.cuda.synchronize()
+            chip_smoke.check(
+                torch.equal(flags, plain),
+                f"{count}: the {name} flag kernel differs from the plain flag pass",
+            )
+        events = {name: [] for name in runs}
+        graphs = {name: [] for name in runs}
+        for name in order:
+            events[name].append(chip_smoke.cuda_ms(
+                lambda: runs[name](*args, binned), REPS
+            ))
+        for name in order:
+            graphs[name].append(chip_smoke.graph_ms(
+                lambda: runs[name](*args, binned), GRAPH_CALLS
+            ))
+        line = "; ".join(
+            f"{name} events {statistics.mean(events[name]):.4f} ms "
+            f"({' / '.join(f'{t:.4f}' for t in events[name])}), graphs "
+            f"{statistics.mean(graphs[name]):.4f} ms "
+            f"({' / '.join(f'{t:.4f}' for t in graphs[name])})"
+            for name in runs
+        )
+        chip_smoke.log(f"[{card}] flags {count} ({pairs.num_pairs} tile pairs, "
+                       f"{int(plain.sum())} flagged): {line}; both bit for bit "
+                       "the plain flag pass")
+    del catalogs, links
+    catalogs = blocked_catalogs()
+    audits = {name: [] for name in runs}
+    for name in order:
+        audits[name].append(blocked_audit(runs[name], catalogs))
+    first = {name: records[0][0] for name, records in audits.items()}
+    parent, shipped = first.values()
+    chip_smoke.check(
+        chip_smoke.same_flagged_slots(parent, shipped),
+        "blocked audit: the two builds flag other slots",
+    )
+    # the same flag passes again, alone: events around each call (host
+    # included) and CUDA graphs of each (the device alone), summed
+    lists = []
+    blocked_audit(next(iter(runs.values())), catalogs, lists)
+    sizes = [len(args[2]) for args in lists]
+    events = {name: [] for name in runs}
+    graphs = {name: [] for name in runs}
+    for name in order:
+        events[name].append(sum(
+            chip_smoke.cuda_ms(lambda: runs[name](*args), REPS) for args in lists
+        ))
+        graphs[name].append(sum(
+            chip_smoke.graph_ms(lambda: runs[name](*args), GRAPH_CALLS)
+            for args in lists
+        ))
+    chip_smoke.log(
+        f"[{card}] blocked audit's {len(lists)} lists alone ({min(sizes)} to "
+        f"{max(sizes)} tile pairs, {sum(sizes)} in all): " + "; ".join(
+            f"{name} events {' / '.join(f'{t:.3f}' for t in events[name])} ms, "
+            f"graphs {' / '.join(f'{t:.3f}' for t in graphs[name])} ms"
+            for name in runs
+        )
+    )
+    chip_smoke.log(f"[{card}] blocked audit: " + "; ".join(
+        f"{name} {len(records[0][0])} flag passes, "
+        + " / ".join(f"{ms:.3f}" for _, ms in records) + " ms of flag pass"
+        for name, records in audits.items()
+    ) + f"; the same {sum(len(r['flagged_slots']) for r in shipped)} "
+        "block-pair slots flagged")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--parent", type=Path, required=True, help="an earlier paircount.cu"
+    )
+    parser.add_argument(
+        "--kernel", choices=("partials", "flags"), default="partials",
+        help="kernel A's cumulative instances (default) or kernel C",
     )
     args = parser.parse_args()
     card = chip_smoke.environment()
@@ -127,9 +378,12 @@ def main() -> None:
         built = dict(zip(sources, pool.map(build, sources, sources.values())))
     runs = {}
     for name, (target, log) in built.items():
-        runs[name] = launcher(target)
+        runs[name] = (flag_launcher if args.kernel == "flags" else launcher)(target)
         for line in chip_smoke.ptxas_summary(log):
             chip_smoke.log(f"  {name} ptxas: {line}")
+    if args.kernel == "flags":
+        time_flags(card, runs)
+        return
 
     catalogs, _ = chip_smoke.make_catalogs()
     config = Configuration.create(**chip_smoke.CONFIG)

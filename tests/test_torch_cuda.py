@@ -18,13 +18,17 @@ cases (``torch_chunk_cases.py``: a pair exactly on a threshold between
 tangent caps, padding chunks) and on catalog tiles, so a wrongly skipped
 pair shows. The blocked measurement path on the card (lanes uploaded on a
 side stream, counts accumulated on the device) equals the in-memory path.
-The audit's flag pass on the card runs the flag kernel (kernel C), whose
+The audit's flag pass on the card runs the flag kernel (kernel C: reach,
+triage, evaluation, one launch each per group of 16 edges), whose
 flags are ``torch.equal`` to the plain version's on the cross and
-binned-column lists, signed weights, more than 16 edges, the chunk edge
+binned-column lists, signed weights, more than 16 edges (also where a
+later group meets tile pairs an earlier one flagged), lists where every
+tile pair is flagged and where none is, the chunk edge
 cases with a pair exactly at ``t + band`` and one a float32 ulp beyond it,
 the engineered on-edge pair of ``torch_audit_cases.py`` and the streamed
-windows of host-gathered lanes; the audit repairs that pair's flip on the
-card, in memory and blocked, through the kernel.
+windows of host-gathered lanes; its reach and its work list equal their
+plain mirrors (``chunk_reach``, ``flag_work_items``); the audit repairs
+that pair's flip on the card, in memory and blocked, through the kernel.
 """
 
 import numpy as np
@@ -547,21 +551,110 @@ def test_flag_kernel_equals_the_plain_version(device, case):
     )
 
     inputs, cols_binned = flag_inputs(case)
+    on_cpu = inputs
     inputs = [t.to(device) for t in inputs]
     cuda_paircount.reset_launch_counts()
     kernel = boundary_flags(*inputs, cols_binned=cols_binned)
     again = boundary_flags(*inputs, cols_binned=cols_binned)
-    launches = cuda_paircount.launch_counts["boundary_flags"]
+    launches = dict(cuda_paircount.launch_counts)
     plain = boundary_flags_torch(
         *inputs[:2], inputs[2].long(), inputs[3].long(), *inputs[4:],
         cols_binned=cols_binned,
     )
     torch.cuda.synchronize()
-    assert launches == 2 * -(-inputs[4].shape[1] // 16)
+    # two launches per group of 16 edges of each kernel: reach, triage,
+    # evaluation
+    groups = -(-inputs[4].shape[1] // 16)
+    for name in cuda_paircount.FLAG_KERNELS:
+        assert launches[name] == 2 * groups, name
     assert torch.equal(kernel, plain)
     assert torch.equal(again, kernel)
     if case in ("edge-cross-at", "edge-binned-at", "on-edge pair"):
         assert plain.any()
+    check_triage(on_cpu, inputs, cols_binned)
+
+
+def check_triage(on_cpu, on_card, cols_binned):
+    """The reach and the work list of the first group of 16 edges, from
+    the kernel's first two launches, equal their plain mirrors on the
+    CPU."""
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        chunk_reach,
+        flag_work_items,
+    )
+    from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
+
+    lanes1, lanes2, tile1, tile2, table, band = on_cpu
+    group = slice(0, 16)
+    reach = cuda_paircount.flag_reach_cuda(*on_card[:1], *on_card[4:])
+    caps1 = chunk_caps(lanes1)
+    assert torch.equal(
+        reach.cpu(), chunk_reach(lanes1, caps1, table[:, group], band[:, group])
+    )
+    items, length = cuda_paircount.flag_triage_cuda(
+        *on_card[:4], reach, cols_binned=cols_binned
+    )
+    expected = flag_work_items(
+        lanes1, caps1, chunk_caps(lanes2), tile1, tile2, table[:, group],
+        band[:, group], cols_binned=cols_binned,
+    )
+    assert torch.equal(cuda_paircount.decode_work_items(items, length), expected)
+
+
+def test_flag_kernel_over_edge_groups_and_extremes(device):
+    """More than 16 edges whose first group flags tile pairs that the
+    second would flag too (the later triage drops them); a band that flags
+    every tile pair with a valid pair, and none that flags nothing: the
+    flags are the plain version's."""
+    from yet_another_wizz_tpu_torch.ops.paircount import (
+        boundary_flags,
+        boundary_flags_torch,
+        flag_work_items,
+    )
+    from yet_another_wizz_tpu_torch.ops.tiles import chunk_caps
+
+    (lanes1, lanes2, tile1, tile2, table, band), _ = flag_inputs("cross")
+    # 20 edges: the table's three edges, repeated
+    wide = table.repeat(1, 7)[:, :20].contiguous()
+    wide_band = band.repeat(1, 7)[:, :20].contiguous()
+    cases = {
+        "20 edges": (wide, wide_band),
+        "every pair near": (table, torch.full_like(band, 10.0)),
+        # a negative half-width: no pair is near, and no chunk reaches
+        "nothing near": (table, torch.full_like(band, -1.0)),
+    }
+    for name, (t, b) in cases.items():
+        args = [x.to(device) for x in (lanes1, lanes2, tile1, tile2, t, b)]
+        flags = boundary_flags(*args)
+        plain = boundary_flags_torch(
+            *args[:2], args[2].long(), args[3].long(), *args[4:]
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(flags, plain), name
+        if name == "every pair near":
+            assert plain.all()
+        if name == "nothing near":
+            assert not plain.any()
+    # the second group's triage leaves out what the first group flagged
+    first = boundary_flags_torch(
+        lanes1, lanes2, tile1.long(), tile2.long(), wide[:, :16],
+        wide_band[:, :16],
+    )
+    assert first.any()
+    args = [x.to(device) for x in (lanes1, lanes2, tile1, tile2)]
+    reach = cuda_paircount.flag_reach_cuda(
+        args[0], wide.to(device), wide_band.to(device), edge0=16
+    )
+    items, length = cuda_paircount.flag_triage_cuda(
+        *args, reach, flags=first.to(device), edge0=16
+    )
+    later = cuda_paircount.decode_work_items(items, length)
+    expected = flag_work_items(
+        lanes1, chunk_caps(lanes1), chunk_caps(lanes2), tile1, tile2,
+        wide[:, 16:], wide_band[:, 16:], flags=first,
+    )
+    assert torch.equal(later, expected)
+    assert not first[later[:, 0]].any()
 
 
 def test_streamed_flag_pass_on_the_card(device, monkeypatch):

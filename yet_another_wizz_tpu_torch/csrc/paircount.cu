@@ -95,41 +95,87 @@
 //      therefore fixed by W and the run's length, not list order; two runs
 //      are bitwise equal. A slot without entries gets zero. Bound by device memory
 //      bytes (each partial read once).
-//   C. boundary_flags_kernel (K2.1, the exactness audit's flag pass) replaces
+//   C. The flag pass (K2.1, the exactness audit's) replaces
 //      yet_another_wizz_tpu/ops/paircount.py::_pair_block_boundary /
 //      _boundary_flags_xla / _boundary_flags_gathered (XLA, not Pallas). It
-//      writes flags[k] = 1 when any valid pair of entry k lies near an edge,
+//      sets flags[k] = 1 when any valid pair of entry k lies near an edge,
 //      |chord2 - t[b, e]| <= band[b, e] for an edge e of the row's bin b; a
 //      pair is valid when both weights are nonzero (zero marks padding, a
 //      negative weight is real data) and, with binned columns, its bins are
-//      equal. Its structure is paircount_partials_kernel's (one block per
-//      entry, the column tile and its caps in shared memory, one row per
-//      thread, a warp's 32 rows per pass, the same compensated chord), with
-//      less work per pair (16 + 3E float32 operations: the chord, the
-//      column weight test, and a subtraction, absolute value and compare per
-//      edge) and nothing to reduce. Bound by float32 issue on the pairs in
-//      reach, which these do about:
-//      - the widened chunk skip: a row chunk reaches sqrt(m) + r_row, m the
-//        largest t[b, e] + band[b, e] (float32 sum) over its rows of nonzero
-//        weight and their edges, and a column chunk out of chunk_reaches of
-//        that (or, with binned columns, of a disjoint bin range) is skipped
-//        as a warp. Exact: the caps cover both points of a skipped pair of
-//        nonzero weights, CAP_SLACK included, so its true chord exceeds
-//        sqrt(m) by at least 2 CAP_SLACK less the float32 rounding of the
-//        test, and the chord the kernel would compute exceeds t + band by
-//        far more than the rounding of the chord, of chord2 - t and of t +
-//        band (relative ~1e-7 of values below 4): |chord2 - t| > band for
-//        every edge, so the pair cannot hit ((1) of A, with t + band for t);
-//        a pair with a zero weight is not valid wherever it lies, and with
-//        binned columns neither is a pair of unequal bins;
-//      - the early exit: a warp that finds a hit sets a flag in shared
-//        memory, and every warp stops at its next chunk once it reads the
-//        flag (warp-uniform, by a vote). The flag is an OR over the pairs,
-//        so the order of evaluation cannot change it.
-//      Tables wider than 16 edges take one launch per group of 16; a later
-//      group skips the entries an earlier one flagged. Its plain mirror is
-//      ops/paircount.py::boundary_flags_torch, and chunk_keep_mask with a
-//      band table mirrors the skip.
+//      equal. Bound by float32 issue on the pairs in reach (16 + 3E
+//      operations per pair: the chord, the column weight test, and a
+//      subtraction, absolute value and compare per edge). Few pairs are:
+//      about 11 % of the 32 x 32 chunk blocks lie within reach of an edge on
+//      the main path, and about 1 % of the entries end flagged, so a design
+//      that stages the whole column tile for every entry pays a fixed cost
+//      per entry several times the chord work. Three launches per group of
+//      16 edges, in stream order, no host synchronisation between them:
+//      - C0 flag_reach_kernel: the reach of each row chunk of the row tile
+//        set, once per launch (not per entry): sqrt(m) + r_row, m the
+//        largest t[b, e] + band[b, e] (float32 sum) over the chunk's rows of
+//        nonzero weight and the group's edges, -inf without such rows
+//        (ops/paircount.py::chunk_reach);
+//      - C1 flag_triage_kernel: one warp per entry tests the entry's 16 x 16
+//        (row chunk, column chunk) blocks from the chunk caps and C0's reach
+//        alone (chunk_reaches; with binned columns also the bin ranges),
+//        without touching the lanes, and appends one work item (entry, row
+//        chunk and run of 16 column chunks, 16-bit mask of the kept column
+//        chunks) per row chunk that keeps any block, through one atomicAdd
+//        per warp on the list's length (plain mirror:
+//        ops/paircount.py::flag_work_items). An entry without items keeps
+//        its 0. Exact: a skipped block holds no near pair, as below;
+//      - C2 flag_evaluate_kernel: a persistent grid (blocks per SM from the
+//        occupancy) whose warps take items in turn through a second
+//        counter, so the host never reads the list's length. A warp drops an
+//        item whose entry is already flagged (a volatile load: other
+//        blocks' stores), holds the item's 32 rows in registers (lane r, row
+//        r: eight coalesced 128-byte loads of the (N, 8, T) lanes) and walks
+//        the mask's column chunks, each 1 KB staged with cp.async into its
+//        own double-buffered shared-memory slot while the previous chunk's
+//        pairs are evaluated (K1.1's operations in K1.1's order, __f*_rn,
+//        built with --fmad=false); only __syncwarp and cp.async.wait_group
+//        order it. Of a staged chunk, only the quads of 4 columns holding a
+//        column that the row chunk needs are evaluated: lane j tests column
+//        j's weight, its hi position against the row chunk's cap and reach
+//        (chunk_reaches with the column as a cap of radius 0) and, with
+//        binned columns, its bin against the chunk's bin range; a warp
+//        ballot gives the columns. On the main path this keeps 0.63 / 0.35 /
+//        0.57 of the columns of the kept blocks (DD / RD / w_ss DD;
+//        scripts/torch_flag_kept_share.py). The
+//        columns of weight 0 then get a NaN x in the slot: their chords are
+//        NaN, and |NaN - t| <= band is false, so they are never near, as a
+//        pair with a zero weight is never valid. The first hit (a warp
+//        vote) stores 1 and ends the item.
+//      The flags cannot depend on the order of the items: each is an OR over
+//      the entry's pairs, a store only ever writes 1, and a dropped item
+//      belongs to an entry already 1. Two runs give the same bits although
+//      the list's order is the atomics'.
+//      The skip is exact: a row chunk reaching sqrt(m) + r_row drops a
+//      column chunk when |c_row - c_col| > reach + r_col. The caps cover
+//      both points of a skipped pair of nonzero weights, CAP_SLACK included,
+//      so its true chord exceeds sqrt(m) by at least 2 CAP_SLACK less the
+//      float32 rounding of the test, and the chord the kernel would compute
+//      exceeds t + band by far more than the rounding of the chord, of
+//      chord2 - t and of t + band (relative ~1e-7 of values below 4):
+//      |chord2 - t| > band for every edge, so the pair cannot hit ((1) of A,
+//      with t + band for t); a pair with a zero weight is not valid wherever
+//      it lies, and with binned columns neither is a pair of unequal bins.
+//      The column test is exact by the same argument with one cap: the row
+//      cap covers its points with CAP_SLACK to spare, and a column's hi
+//      position lies within ~1e-7 of the point, so a skipped column lies
+//      farther than sqrt(m) + CAP_SLACK / 2 from every row of nonzero weight
+//      of the chunk.
+//      A tighter, band-aware test (keep a block only if some edge's band
+//      [t - band, t + band] meets the caps' chord interval [D - r_r - r_c,
+//      D + r_r + r_c]) drops no block of the main path's lists, whose chunk
+//      radii exceed the edges' chords (scripts/torch_flag_kept_share.py),
+//      so it is not used.
+//      No tensor cores: a chord from a Gram matrix on wgmma (TF32 or
+//      3xTF32) rounds differently from the compensated chord the flags rest
+//      on, and the port allows no TF32.
+//      Tables wider than 16 edges take one set of launches per group of 16;
+//      a later group's triage skips the entries an earlier one flagged. The
+//      plain version is ops/paircount.py::boundary_flags_torch.
 //
 // The source is compiled once per counting mode (-DYAWT_DIRECT=0, 1 or 2:
 // cumulative, direct small-angle, direct arcsine), each build into its own
@@ -148,6 +194,9 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
+#include <atomic>
+
 #ifndef YAWT_DIRECT
 #define YAWT_DIRECT 0
 #endif
@@ -162,6 +211,9 @@ constexpr int kChunk = kWarp;
 constexpr int kCapWidth = 8;  // floats per chunk cap (ops/tiles.py::CAP_WIDTH)
 constexpr int kDirectMinBlocks = 4;  // blocks per SM: at most 64 registers
 constexpr int kSegmentThreads = 256;
+// column chunks per work item of kernel C (the bits of its mask;
+// ops/paircount.py::FLAG_ITEM_CHUNKS)
+constexpr int kItemChunks = 16;
 // returned instead of a CUDA error when a launch needs more shared memory
 // than one block may have
 constexpr int kErrorSharedMemory = -1;
@@ -727,126 +779,331 @@ __global__ void __launch_bounds__(kSegmentThreads) segment_sum_kernel(
   }
 }
 
-// Kernel C (K2.1): see the note at the top.
+// Kernel C (K2.1): see the note at the top. C0, the reach of every row
+// chunk for this launch's edge group: one warp per chunk, one row per lane,
+// in chunk_keep_mask's float32 operations (ops/paircount.py::chunk_reach).
+// Thread 0 also zeroes the work list's length and its next item for C1 and
+// C2, which follow on the stream.
+__global__ void __launch_bounds__(kThreads) flag_reach_kernel(
+    const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
+    const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
+    long long num_chunks_total,        // N1 * T / kChunk
+    const float* __restrict__ table,   // (B, E) thresholds
+    const float* __restrict__ band,    // (B, E) half-widths
+    int num_bins, int num_edges, int edge0, int num_group, int tile_size,
+    float* __restrict__ reach,         // (N1, T / kChunk)
+    int* __restrict__ counters) {      // work-list length, next item
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    counters[0] = 0;
+    counters[1] = 0;
+  }
+  const long long chunk =
+      static_cast<long long>(blockIdx.x) * (kThreads / kWarp) + threadIdx.x / kWarp;
+  if (chunk >= num_chunks_total) return;  // warp-uniform
+  const int num_chunks = tile_size / kChunk;
+  const long long tile = chunk / num_chunks;
+  const int row = static_cast<int>(chunk % num_chunks) * kChunk + threadIdx.x % kWarp;
+  const float* rows = lanes1 + tile * 8 * tile_size;
+  const float w_row = rows[6 * tile_size + row];
+  const float zr = rows[7 * tile_size + row];
+  const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
+  float largest = -1.0f;  // the row's largest t + band
+  for (int e = 0; e < num_group; ++e) {
+    const int at = bin * num_edges + edge0 + e;
+    largest = fmaxf(largest, __fadd_rn(table[at], band[at]));
+  }
+  // the chunk reaches as far as its rows of nonzero weight
+  largest = w_row != 0.0f ? largest : -1.0f;
+#pragma unroll
+  for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+    largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
+  }
+  if (threadIdx.x % kWarp == 0) {
+    // -inf for a chunk that can flag nothing
+    reach[chunk] = largest < 0.0f
+                       ? -CUDART_INF_F
+                       : __fadd_rn(sqrtf(largest), caps1[chunk * kCapWidth + 3]);
+  }
+}
+
+// C1, the triage: one warp per entry, from the chunk caps and C0's reach
+// alone. Lane u tests work unit u = (row chunk r, run g of kItemChunks
+// column chunks) against each column chunk of the run (chunk_reaches, and
+// with binned columns the bin ranges: chunk_keep_mask's rule) and, where it
+// keeps any, appends the item (entry, u << 16 | mask) through one atomicAdd
+// per warp. An entry an earlier edge group flagged gets no items.
+template <bool COLS_BINNED>
+__global__ void __launch_bounds__(kThreads) flag_triage_kernel(
+    const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
+    const float* __restrict__ caps2,   // (N2, T / kChunk, kCapWidth)
+    const float* __restrict__ reach,   // (N1, T / kChunk), from C0
+    const int* __restrict__ tile1,     // (P,) row tile of each pair
+    const int* __restrict__ tile2,     // (P,) column tile of each pair
+    long long num_pairs, int tile_size, int edge0,
+    const unsigned char* __restrict__ flags,  // (P,)
+    uint2* __restrict__ items,         // (P * K * G) work list
+    int* __restrict__ counters) {      // work-list length, next item
+  const long long k =
+      static_cast<long long>(blockIdx.x) * (kThreads / kWarp) + threadIdx.x / kWarp;
+  if (k >= num_pairs) return;            // warp-uniform
+  if (edge0 > 0 && flags[k]) return;     // flagged by an earlier group
+  const int lane = threadIdx.x % kWarp;
+  const int num_chunks = tile_size / kChunk;
+  const int num_runs = (num_chunks + kItemChunks - 1) / kItemChunks;
+  const float4* row_caps = reinterpret_cast<const float4*>(
+      caps1 + static_cast<long long>(tile1[k]) * num_chunks * kCapWidth);
+  const float4* col_caps = reinterpret_cast<const float4*>(
+      caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
+  const float* row_reach = reach + static_cast<long long>(tile1[k]) * num_chunks;
+  for (int base = 0; base < num_chunks * num_runs; base += kWarp) {
+    const int unit = base + lane;
+    unsigned int mask = 0;
+    if (unit < num_chunks * num_runs) {
+      const int r = unit / num_runs;
+      const int c0 = (unit % num_runs) * kItemChunks;
+      const float4 row_cap = row_caps[2 * r];
+      const float4 row_bins = row_caps[2 * r + 1];
+      const float row_far = row_reach[r];
+      for (int i = 0; i < kItemChunks && c0 + i < num_chunks; ++i) {
+        bool keep = chunk_reaches(row_far, row_cap, col_caps[2 * (c0 + i)]);
+        if constexpr (COLS_BINNED) {
+          const float4 col_bins = col_caps[2 * (c0 + i) + 1];
+          keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
+        }
+        mask |= keep ? 1u << i : 0u;
+      }
+    }
+    const unsigned int emit = __ballot_sync(0xffffffffu, mask != 0);
+    if (emit == 0) continue;  // warp-uniform
+    int at = 0;
+    if (lane == 0) at = atomicAdd(counters, __popc(emit));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (mask != 0) {
+      at += __popc(emit & ((1u << lane) - 1));
+      items[at] = make_uint2(static_cast<unsigned int>(k),
+                             static_cast<unsigned int>(unit) << 16 | mask);
+    }
+  }
+}
+
+// One column chunk (8 channels x kChunk floats, 1 KB) of the column tile
+// into a warp's shared-memory slot, channel-major, as 64 16-byte cp.async
+// copies, two per lane. T is a multiple of kChunk and the lanes 16-byte
+// aligned, so every source is.
+__device__ __forceinline__ void stage_chunk(float* slot, const float* cols,
+                                            int tile_size, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8 * kChunk / 4 / kWarp; ++i) {
+    const int piece = lane + i * kWarp;
+    const int channel = piece / (kChunk / 4);
+    const int quad = piece % (kChunk / 4);
+    const unsigned int to = static_cast<unsigned int>(
+        __cvta_generic_to_shared(slot + channel * kChunk + 4 * quad));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                 "l"(cols + channel * tile_size + 4 * quad));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Which columns of the staged chunk a row chunk needs (a warp ballot,
+// lane j for column j): nonzero weight, within the chunk's reach of its
+// cap's center (chunk_reaches with the column's hi position as a cap of
+// radius 0) and, with binned columns, a bin in the chunk's bin range.
+template <bool COLS_BINNED>
+__device__ __forceinline__ unsigned int needed_columns(const float* slot,
+                                                       float row_far,
+                                                       float4 row_cap,
+                                                       float4 row_bins,
+                                                       int lane) {
+  const float4 point = make_float4(slot[lane], slot[kChunk + lane],
+                                   slot[2 * kChunk + lane], 0.0f);
+  bool need = slot[6 * kChunk + lane] != 0.0f &&
+              chunk_reaches(row_far, row_cap, point);
+  if constexpr (COLS_BINNED) {
+    const float bin = slot[7 * kChunk + lane];
+    need = need && !(bin < row_bins.x || row_bins.y < bin);
+  }
+  return __ballot_sync(0xffffffffu, need);
+}
+
+// Whether any valid pair of a lane's row and the staged chunk's columns in
+// the quads (groups of 4 columns) of quad_mask lies within the band of an
+// edge: K1.1's chord in its operations and order, 16 + 3E float32
+// operations per pair. The columns of weight 0 hold a NaN x, so their
+// chords are NaN and never near: no pair tests the column weight.
 template <int NE, bool COLS_BINNED>
-__global__ void __launch_bounds__(kThreads) boundary_flags_kernel(
+__device__ __forceinline__ bool chunk_hits(const float* slot,
+                                           unsigned int quad_mask, float xh,
+                                           float yh, float zh, float xl,
+                                           float yl, float zl, float zr,
+                                           const float (&thr)[NE],
+                                           const float (&bnd)[NE]) {
+  const float4* s = reinterpret_cast<const float4*>(slot);
+  constexpr int kQuads = kChunk / 4;
+  bool hit = false;
+  for (; quad_mask != 0; quad_mask &= quad_mask - 1) {
+    const int q = __ffs(quad_mask) - 1;
+    const float4 axh = s[0 * kQuads + q];
+    const float4 ayh = s[1 * kQuads + q];
+    const float4 azh = s[2 * kQuads + q];
+    const float4 axl = s[3 * kQuads + q];
+    const float4 ayl = s[4 * kQuads + q];
+    const float4 azl = s[5 * kQuads + q];
+    float4 az = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (COLS_BINNED) az = s[7 * kQuads + q];
+    const float cxh[4] = {axh.x, axh.y, axh.z, axh.w};
+    const float cyh[4] = {ayh.x, ayh.y, ayh.z, ayh.w};
+    const float czh[4] = {azh.x, azh.y, azh.z, azh.w};
+    const float cxl[4] = {axl.x, axl.y, axl.z, axl.w};
+    const float cyl[4] = {ayl.x, ayl.y, ayl.z, ayl.w};
+    const float czl[4] = {azl.x, azl.y, azl.z, azl.w};
+    const float cz[4] = {az.x, az.y, az.z, az.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // compensated difference: (hi1 - hi2) + (lo1 - lo2)
+      const float dx = __fadd_rn(__fsub_rn(xh, cxh[j]), __fsub_rn(xl, cxl[j]));
+      const float dy = __fadd_rn(__fsub_rn(yh, cyh[j]), __fsub_rn(yl, cyl[j]));
+      const float dz = __fadd_rn(__fsub_rn(zh, czh[j]), __fsub_rn(zl, czl[j]));
+      float chord2 = __fmul_rn(dx, dx);
+      chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
+      chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
+      bool near = false;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        near = near || fabsf(__fsub_rn(chord2, thr[e])) <= bnd[e];
+      }
+      bool ok = true;  // columns of weight 0 hold NaN (flag_evaluate_kernel)
+      if constexpr (COLS_BINNED) {
+        ok = cz[j] == zr;  // exact compare of the float bin lanes
+      }
+      hit = hit || (ok && near);
+    }
+  }
+  return hit;
+}
+
+// C2, the evaluation: a persistent grid whose warps take C1's items in turn
+// (a warp-level atomicAdd on the next item, fetched one item ahead). An
+// item whose entry is flagged already is dropped; otherwise lane r holds
+// row r of the item's row chunk in registers and the warp walks the mask's
+// column chunks, staging chunk i + 1 with cp.async into the other half of
+// its double buffer while it evaluates chunk i: first which of its columns
+// the row chunk needs (needed_columns), then the pairs of the quads of 4
+// columns that hold one. The first hit stores 1 into flags[entry] and ends
+// the item. Only __syncwarp and cp.async.wait_group order the warp; there
+// is no block-wide barrier.
+template <int NE, bool COLS_BINNED>
+__global__ void __launch_bounds__(kThreads) flag_evaluate_kernel(
     const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
     const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
     const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
-    const float* __restrict__ caps2,   // (N2, T / kChunk, kCapWidth)
+    const float* __restrict__ reach,   // (N1, T / kChunk), from C0
     const int* __restrict__ tile1,     // (P,) row tile of each pair
     const int* __restrict__ tile2,     // (P,) column tile of each pair
     const float* __restrict__ table,   // (B, E) thresholds
     const float* __restrict__ band,    // (B, E) half-widths
     int num_bins, int num_edges, int edge0, int num_group, int tile_size,
-    unsigned char* __restrict__ flags) {  // (P,)
+    const uint2* __restrict__ items,   // from C1
+    int* __restrict__ counters,        // work-list length, next item
+    unsigned char* flags) {            // (P,), read and written by many warps
+  __shared__ __align__(16) float stage[kThreads / kWarp][2][8 * kChunk];
+  const int lane = threadIdx.x % kWarp;
+  float* slots = stage[threadIdx.x / kWarp][0];
+  const int num_items = counters[0];
   const int num_chunks = tile_size / kChunk;
-  extern __shared__ float4 smem[];
-  float4* col_a = smem;              // (T)
-  float4* col_b = smem + tile_size;  // (T)
-  float4* cap_s = smem + 2 * tile_size;  // (T / kChunk, 2) column caps
-  float* thr_s = reinterpret_cast<float*>(cap_s + 2 * num_chunks);  // (B, NE)
-  float* band_s = thr_s + num_bins * NE;                              // (B, NE)
-  __shared__ int found;
+  const int num_runs = (num_chunks + kItemChunks - 1) / kItemChunks;
+  volatile unsigned char* seen = flags;  // other blocks' stores included
 
-  const long long k = blockIdx.x;
-  // an earlier edge group flagged this entry (the whole block returns)
-  if (edge0 > 0 && flags[k]) return;
-  const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
-  const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
-  const float4* row_caps = reinterpret_cast<const float4*>(
-      caps1 + static_cast<long long>(tile1[k]) * num_chunks * kCapWidth);
-  const float4* col_caps = reinterpret_cast<const float4*>(
-      caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
-  stage_columns(cols, tile_size, col_a, col_b);
-  // edges beyond the group: t = band = -1, |chord2 + 1| <= -1 never holds
-  stage_thresholds<NE>(table, num_bins, num_edges, edge0, num_group, thr_s);
-  stage_thresholds<NE>(band, num_bins, num_edges, edge0, num_group, band_s);
-  for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
-    cap_s[i] = col_caps[i];
-  }
-  if (threadIdx.x == 0) found = 0;
-  __syncthreads();
-
-  const volatile int* seen = &found;
-  for (int base = 0; base < tile_size; base += blockDim.x) {
-    if (__any_sync(0xffffffffu, *seen != 0)) break;
-    // one row per thread: the warp's rows are one chunk, all of them
-    // valid or none (T is a multiple of kChunk)
-    const int row = base + threadIdx.x;
-    const bool valid = row < tile_size;
-    const int at = valid ? row : 0;
-    const float xh = rows[at];
-    const float yh = rows[tile_size + at];
-    const float zh = rows[2 * tile_size + at];
-    const float xl = rows[3 * tile_size + at];
-    const float yl = rows[4 * tile_size + at];
-    const float zl = rows[5 * tile_size + at];
-    const float w_row = rows[6 * tile_size + at];
-    const float zr = rows[7 * tile_size + at];
-    const bool row_ok = valid && w_row != 0.0f;
-    const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
-    float thr[NE];
-    float bnd[NE];
-    float largest = -1.0f;  // the row's largest t + band
+  int item = 0;
+  if (lane == 0) item = atomicAdd(counters + 1, 1);
+  item = __shfl_sync(0xffffffffu, item, 0);
+  while (item < num_items) {
+    int next = 0;
+    if (lane == 0) next = atomicAdd(counters + 1, 1);  // in flight meanwhile
+    const uint2 work = items[item];
+    const unsigned int entry = work.x;
+    if (!seen[entry]) {  // warp-uniform: one address
+      const unsigned int unit = work.y >> 16;
+      unsigned int mask = work.y & 0xffffu;
+      const int r = static_cast<int>(unit) / num_runs;
+      const int c0 = (static_cast<int>(unit) % num_runs) * kItemChunks;
+      const long long row_chunk = static_cast<long long>(tile1[entry]) * num_chunks + r;
+      const float* rows = lanes1 + static_cast<long long>(tile1[entry]) * 8 * tile_size +
+                          r * kChunk + lane;
+      const float* cols = lanes2 + static_cast<long long>(tile2[entry]) * 8 * tile_size +
+                          c0 * kChunk;
+      int chunk = __ffs(mask) - 1;
+      mask &= mask - 1;
+      stage_chunk(slots, cols + chunk * kChunk, tile_size, lane);
+      // one row per lane: 8 coalesced 128-byte loads
+      const float xh = rows[0];
+      const float yh = rows[tile_size];
+      const float zh = rows[2 * tile_size];
+      const float xl = rows[3 * tile_size];
+      const float yl = rows[4 * tile_size];
+      const float zl = rows[5 * tile_size];
+      const float w_row = rows[6 * tile_size];
+      const float zr = rows[7 * tile_size];
+      const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
+      const float4* row_caps = reinterpret_cast<const float4*>(caps1) + 2 * row_chunk;
+      const float4 row_cap = row_caps[0];
+      const float4 row_bins = row_caps[1];
+      const float row_far = reach[row_chunk];
+      // edges beyond the group: t = band = -1, |chord2 + 1| <= -1 never holds
+      float thr[NE];
+      float bnd[NE];
 #pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      thr[e] = thr_s[bin * NE + e];
-      bnd[e] = band_s[bin * NE + e];
-      largest = fmaxf(largest, __fadd_rn(thr[e], bnd[e]));
-    }
-    // the chunk reaches as far as its rows of nonzero weight
-    largest = row_ok ? largest : -1.0f;
-#pragma unroll
-    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
-      largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
-    }
-    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 row_cap = valid ? row_caps[2 * (row / kChunk)] : none;
-    const float4 row_bins = valid ? row_caps[2 * (row / kChunk) + 1] : none;
-    // -inf for a chunk that can flag nothing
-    const float reach = largest < 0.0f ? -CUDART_INF_F
-                                       : __fadd_rn(sqrtf(largest), row_cap.w);
-
-    for (int chunk = 0; chunk < num_chunks; ++chunk) {
-      if (__any_sync(0xffffffffu, *seen != 0)) break;
-      bool keep = chunk_reaches(reach, row_cap, cap_s[2 * chunk]);
-      if constexpr (COLS_BINNED) {
-        const float4 col_bins = cap_s[2 * chunk + 1];
-        keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
-      }
-      if (!keep) continue;  // no pair of the chunk can hit
-      bool hit = false;
-      for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
-        const float4 a = col_a[j];
-        const float4 c = col_b[j];
-        // compensated difference: (hi1 - hi2) + (lo1 - lo2)
-        const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
-        const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
-        const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
-        float chord2 = __fmul_rn(dx, dx);
-        chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
-        chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
-
-        bool near = false;
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          near = near || fabsf(__fsub_rn(chord2, thr[e])) <= bnd[e];
+      for (int e = 0; e < NE; ++e) {
+        thr[e] = -1.0f;
+        bnd[e] = -1.0f;
+        if (e < num_group) {
+          thr[e] = table[bin * num_edges + edge0 + e];
+          bnd[e] = band[bin * num_edges + edge0 + e];
         }
-        bool ok = a.w != 0.0f;
-        if constexpr (COLS_BINNED) {
-          ok = ok && c.w == zr;  // exact compare of the float bin lanes
+      }
+      const bool row_ok = w_row != 0.0f;
+      int buffer = 0;
+      bool found = false;
+      while (true) {
+        const bool more = mask != 0;
+        if (more) {
+          chunk = __ffs(mask) - 1;
+          mask &= mask - 1;
+          stage_chunk(slots + (buffer ^ 1) * 8 * kChunk, cols + chunk * kChunk,
+                      tile_size, lane);
+          wait_staged<1>();
+        } else {
+          wait_staged<0>();
         }
-        hit = hit || (ok && near);
+        __syncwarp();
+        float* slot = slots + buffer * 8 * kChunk;
+        const unsigned int columns =
+            needed_columns<COLS_BINNED>(slot, row_far, row_cap, row_bins, lane);
+        // a column of weight 0 is never near: NaN chords compare false
+        if (slot[6 * kChunk + lane] == 0.0f) slot[lane] = CUDART_NAN_F;
+        __syncwarp();
+        // lane q < 8: does quad q hold a needed column?
+        const unsigned int quads = __ballot_sync(
+            0xffffffffu,
+            lane < kChunk / 4 && ((columns >> (4 * (lane % 8))) & 0xfu) != 0);
+        const bool hit = chunk_hits<NE, COLS_BINNED>(
+            slot, quads, xh, yh, zh, xl, yl, zl, zr, thr, bnd);
+        found = __any_sync(0xffffffffu, hit && row_ok);
+        __syncwarp();  // the chunk is read before its slot is staged again
+        if (found || !more) break;
+        buffer ^= 1;
       }
-      if (__any_sync(0xffffffffu, hit && row_ok)) {
-        if (threadIdx.x % kWarp == 0) found = 1;
-        break;
-      }
+      wait_staged<0>();  // a chunk still in flight after a hit
+      __syncwarp();
+      if (found && lane == 0) seen[entry] = 1;
     }
+    item = __shfl_sync(0xffffffffu, next, 0);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) flags[k] = found ? 1 : 0;
 }
 
 struct FlagLaunch {
@@ -856,36 +1113,79 @@ struct FlagLaunch {
   const float* caps2;
   const int* tile1;
   const int* tile2;
+  long long num_tiles1;
   long long num_pairs;
   const float* table;
   const float* band;
   int num_bins, num_edges, edge0, num_group, tile_size;
+  float* reach;
+  uint2* items;
+  int* counters;
   unsigned char* flags;
   cudaStream_t stream;
 };
 
+unsigned int warp_blocks(long long warps) {
+  constexpr long long per_block = kThreads / kWarp;
+  return static_cast<unsigned int>((warps + per_block - 1) / per_block);
+}
+
+int launch_reach(const FlagLaunch& a) {
+  const long long chunks = a.num_tiles1 * (a.tile_size / kChunk);
+  flag_reach_kernel<<<warp_blocks(chunks), kThreads, 0, a.stream>>>(
+      a.lanes1, a.caps1, chunks, a.table, a.band, a.num_bins, a.num_edges,
+      a.edge0, a.num_group, a.tile_size, a.reach, a.counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_triage(const FlagLaunch& a, bool cols_binned) {
+  auto kernel = cols_binned ? flag_triage_kernel<true> : flag_triage_kernel<false>;
+  kernel<<<warp_blocks(a.num_pairs), kThreads, 0, a.stream>>>(
+      a.caps1, a.caps2, a.reach, a.tile1, a.tile2, a.num_pairs, a.tile_size,
+      a.edge0, a.flags, a.items, a.counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A persistent grid: as many blocks as fit the SMs at once (from the
+// kernel's occupancy, queried at its first launch, so that later launches
+// can be captured in a CUDA graph), but no more warps than items the list
+// can hold.
 template <int NE, bool COLS_BINNED>
-int launch_flags(const FlagLaunch& a) {
-  const size_t tile = static_cast<size_t>(a.tile_size);
-  const size_t smem = 2 * tile * sizeof(float4) +
-                      2 * (tile / kChunk) * sizeof(float4) +
-                      2 * static_cast<size_t>(a.num_bins) * NE * sizeof(float);
-  auto kernel = boundary_flags_kernel<NE, COLS_BINNED>;
-  const int status = prepare(kernel, smem);
-  if (status != 0) return status;
-  kernel<<<static_cast<unsigned int>(a.num_pairs), kThreads, smem, a.stream>>>(
-      a.lanes1, a.lanes2, a.caps1, a.caps2, a.tile1, a.tile2, a.table, a.band,
-      a.num_bins, a.num_edges, a.edge0, a.num_group, a.tile_size, a.flags);
+int launch_evaluate(const FlagLaunch& a) {
+  auto kernel = flag_evaluate_kernel<NE, COLS_BINNED>;
+  static std::atomic<int> occupancy{0};  // blocks per SM, 0 until queried
+  int device = 0;
+  int sms = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (status == cudaSuccess && occupancy.load() == 0) {
+    int per_sm = 0;
+    status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           kThreads, 0);
+    occupancy.store(std::max(per_sm, 1));
+  }
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const int chunks = a.tile_size / kChunk;
+  const long long capacity =
+      a.num_pairs * chunks * ((chunks + kItemChunks - 1) / kItemChunks);
+  const unsigned int blocks = static_cast<unsigned int>(std::min<long long>(
+      static_cast<long long>(occupancy.load()) * sms, warp_blocks(capacity)));
+  kernel<<<blocks, kThreads, 0, a.stream>>>(
+      a.lanes1, a.lanes2, a.caps1, a.reach, a.tile1, a.tile2, a.table, a.band,
+      a.num_bins, a.num_edges, a.edge0, a.num_group, a.tile_size, a.items,
+      a.counters, a.flags);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool COLS_BINNED>
-int dispatch_flags(const FlagLaunch& a) {
-  if (a.num_group <= 1) return launch_flags<1, COLS_BINNED>(a);
-  if (a.num_group <= 2) return launch_flags<2, COLS_BINNED>(a);
-  if (a.num_group <= 4) return launch_flags<4, COLS_BINNED>(a);
-  if (a.num_group <= 8) return launch_flags<8, COLS_BINNED>(a);
-  return launch_flags<16, COLS_BINNED>(a);
+int dispatch_evaluate(const FlagLaunch& a) {
+  if (a.num_group <= 1) return launch_evaluate<1, COLS_BINNED>(a);
+  if (a.num_group <= 2) return launch_evaluate<2, COLS_BINNED>(a);
+  if (a.num_group <= 4) return launch_evaluate<4, COLS_BINNED>(a);
+  if (a.num_group <= 8) return launch_evaluate<8, COLS_BINNED>(a);
+  return launch_evaluate<16, COLS_BINNED>(a);
 }
 #endif
 
@@ -931,24 +1231,88 @@ int yawt_paircount_partials(const float* lanes1, const float* lanes2,
 }
 
 #if YAWT_DIRECT == 0
-// One launch of kernel C (the audit's flag pass) for the edges [edge0, edge0
-// + num_group) of the (num_bins, num_edges) float32 table and band, 1 <=
-// num_group <= 16, into the (num_pairs,) bytes flags (0 or 1; a launch with
-// edge0 > 0 keeps the entries an earlier group set). caps1 / caps2 as for
-// yawt_paircount_partials. Returns cudaGetLastError() after the launch, the
-// error of raising the kernel's shared-memory limit, or -1 when the tile and
-// table need more shared memory than one block may have.
+// Column chunks per work item of kernel C (checked when the library is
+// loaded).
+int yawt_flag_item_chunks() { return kItemChunks; }
+
+// Kernel C (the audit's flag pass) for the edges [edge0, edge0 + num_group)
+// of the (num_bins, num_edges) float32 table and band, 1 <= num_group <=
+// 16: three launches on the stream, C0 (the reach of each row chunk), C1
+// (the triage into a work list) and C2 (the evaluation), with no host
+// synchronisation between them. flags, (num_pairs,) bytes, must hold 0 for
+// the first group (edge0 = 0) and the earlier groups' flags for a later one:
+// the launch only stores 1, into the entries with a valid pair within the
+// band of one of its edges. caps1 / caps2 as for yawt_paircount_partials;
+// the workspace comes from the caller: reach, (num_tiles1, T / 32) float32;
+// items, (num_pairs * K * G) pairs of uint32 with K = T / 32 and G = ceil(K
+// / 16) (K * G < 65536); counters, 2 int32. Returns cudaGetLastError()
+// after the first launch that fails, or 0.
 int yawt_boundary_flags(const float* lanes1, const float* lanes2,
                         const float* caps1, const float* caps2,
                         const int* tile1, const int* tile2,
-                        long long num_pairs, const float* table,
-                        const float* band, int num_bins, int num_edges,
-                        int edge0, int num_group, int tile_size,
-                        int cols_binned, unsigned char* flags, void* stream) {
-  const FlagLaunch a{lanes1, lanes2, caps1, caps2, tile1, tile2, num_pairs,
-                     table, band, num_bins, num_edges, edge0, num_group,
-                     tile_size, flags, static_cast<cudaStream_t>(stream)};
-  return cols_binned ? dispatch_flags<true>(a) : dispatch_flags<false>(a);
+                        long long num_tiles1, long long num_pairs,
+                        const float* table, const float* band, int num_bins,
+                        int num_edges, int edge0, int num_group,
+                        int tile_size, int cols_binned, float* reach,
+                        unsigned int* items, int* counters,
+                        unsigned char* flags, void* stream) {
+  const FlagLaunch a{lanes1, lanes2, caps1, caps2, tile1, tile2, num_tiles1,
+                     num_pairs, table, band, num_bins, num_edges, edge0,
+                     num_group, tile_size, reach,
+                     reinterpret_cast<uint2*>(items), counters, flags,
+                     static_cast<cudaStream_t>(stream)};
+  int status = launch_reach(a);
+  if (status == 0) status = launch_triage(a, cols_binned != 0);
+  if (status == 0) {
+    status = cols_binned ? dispatch_evaluate<true>(a) : dispatch_evaluate<false>(a);
+  }
+  return status;
+}
+
+// C0 alone, as in yawt_boundary_flags (it also zeroes counters).
+int yawt_flag_reach(const float* lanes1, const float* caps1,
+                    long long num_tiles1, const float* table,
+                    const float* band, int num_bins, int num_edges, int edge0,
+                    int num_group, int tile_size, float* reach, int* counters,
+                    void* stream) {
+  FlagLaunch a{};
+  a.lanes1 = lanes1;
+  a.caps1 = caps1;
+  a.num_tiles1 = num_tiles1;
+  a.table = table;
+  a.band = band;
+  a.num_bins = num_bins;
+  a.num_edges = num_edges;
+  a.edge0 = edge0;
+  a.num_group = num_group;
+  a.tile_size = tile_size;
+  a.reach = reach;
+  a.counters = counters;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_reach(a);
+}
+
+// C1 alone, as in yawt_boundary_flags, after C0 (counters zeroed): the
+// work list's length ends in counters[0].
+int yawt_flag_triage(const float* caps1, const float* caps2,
+                     const float* reach, const int* tile1, const int* tile2,
+                     long long num_pairs, int tile_size, int edge0,
+                     int cols_binned, const unsigned char* flags,
+                     unsigned int* items, int* counters, void* stream) {
+  FlagLaunch a{};
+  a.caps1 = caps1;
+  a.caps2 = caps2;
+  a.reach = const_cast<float*>(reach);
+  a.tile1 = tile1;
+  a.tile2 = tile2;
+  a.num_pairs = num_pairs;
+  a.tile_size = tile_size;
+  a.edge0 = edge0;
+  a.flags = const_cast<unsigned char*>(flags);
+  a.items = reinterpret_cast<uint2*>(items);
+  a.counters = counters;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_triage(a, cols_binned != 0);
 }
 
 // One launch of kernel B. Returns cudaGetLastError() after the launch.

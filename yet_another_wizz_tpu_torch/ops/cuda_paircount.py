@@ -47,11 +47,17 @@ fixed pairwise tree (group ``g`` adds group ``g + h`` for ``h = 1, 2, 4,
 length; it is not list order, which the plain version follows on the CPU.
 Two runs are bitwise equal.
 
-Kernel C is kernel A's cumulative structure with less work per pair and
-nothing to reduce: it skips the column chunks out of reach of a row chunk
-widened by the band (``t + band`` for ``t``; the plain mirror is
-``chunk_keep_mask`` with a band table) and ends a tile pair at its first
-hit. Its flags are bit for bit those of the plain version,
+Kernel C is three launches per group of 16 edges, with no host
+synchronisation between them: C0 computes the reach of every row chunk
+once (its rows' largest ``t + band``; plain mirror
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.chunk_reach`), C1 triages
+every tile pair from the chunk caps and that reach alone into a work list
+of (tile pair, row chunk, column-chunk mask) items (plain mirror
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.flag_work_items`), and C2,
+a persistent grid, evaluates the items' chunk blocks with the column
+chunks staged by ``cp.async`` and ends a tile pair at its first hit. The
+flags start at zero and are only ever set, so they do not depend on the
+order of the items; they are bit for bit those of the plain version,
 :func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags_torch`.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use, once per
@@ -61,7 +67,8 @@ plain PyTorch version from :mod:`.paircount` instead; on a CUDA tensor it
 launches the kernel or raises (kernel C's wrapper takes CUDA tensors only:
 :func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags` picks the
 plain version for the CPU). Each launch adds one to the variant's entry
-of :data:`launch_counts`.
+of :data:`launch_counts` (kernel C's three launches, one each of
+:data:`FLAG_KERNELS`).
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ import torch
 
 from yet_another_wizz_tpu_torch.ops.gweight import counting_width, entry_layout
 from yet_another_wizz_tpu_torch.ops.paircount import (
+    FLAG_ITEM_CHUNKS,
     partial_counts_torch,
     segment_sum_torch,
 )
@@ -96,6 +104,9 @@ __all__ = [
     "boundary_flags_cuda",
     "build",
     "count_pairs_cuda",
+    "decode_work_items",
+    "flag_reach_cuda",
+    "flag_triage_cuda",
     "launch_counts",
     "paircount_partials",
     "reset_launch_counts",
@@ -123,8 +134,12 @@ accumulators are sized at compile time); wider tables take one launch per
 group."""
 
 _SHARED_MEMORY_EXCEEDED = -1
-"""Status of a kernel-A or kernel-C launch that needs more shared memory
-than one block may have."""
+"""Status of a kernel-A launch that needs more shared memory than one
+block may have."""
+
+FLAG_KERNELS = ("boundary_flags_reach", "boundary_flags_triage", "boundary_flags")
+"""The :data:`launch_counts` keys of kernel C's launches C0 (reach), C1
+(triage) and C2 (evaluation), in launch order."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
@@ -152,7 +167,7 @@ launch_counts = {
         "paircount_partials_arcsine",
         "paircount_partials_arcsine_binned",
         "paircount_segment_sum",
-        "boundary_flags",
+        *FLAG_KERNELS,
     )
 }
 """Kernel launches in this process, by kernel variant."""
@@ -184,11 +199,28 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
     if mode == 0:
         lib.yawt_segment_sum.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
         lib.yawt_segment_sum.restype = i32
+    # a library of an earlier source without them runs kernels A and B only
+    # (scripts/torch_cumulative_variants.py binds its flag kernel itself)
+    if mode == 0 and hasattr(lib, "yawt_flag_item_chunks"):
+        lib.yawt_flag_item_chunks.restype = i32
+        if lib.yawt_flag_item_chunks() != FLAG_ITEM_CHUNKS:
+            raise RuntimeError(
+                f"{path} does not group {FLAG_ITEM_CHUNKS} column chunks per "
+                "work item"
+            )
         lib.yawt_boundary_flags.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
         ]
         lib.yawt_boundary_flags.restype = i32
+        lib.yawt_flag_reach.argtypes = [
+            ptr, ptr, i64, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+        ]
+        lib.yawt_flag_reach.restype = i32
+        lib.yawt_flag_triage.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr,
+        ]
+        lib.yawt_flag_triage.restype = i32
     return lib
 
 
@@ -426,6 +458,48 @@ def segment_sum(
     return out
 
 
+def _check_flag_inputs(lanes1, lanes2, tile1, tile2, *tables):
+    """Raises for inputs kernel C does not take (``tables``: the threshold
+    and band tables, where given); returns ``(T / 32, runs)``, the chunks
+    per tile and the work items per row chunk."""
+    device = lanes1.device
+    if device.type != "cuda":
+        raise ValueError(f"the flag kernel needs CUDA tensors, got {device}")
+    _check(lanes1, "lanes1", torch.float32, 3, device)
+    _check(lanes2, "lanes2", torch.float32, 3, device)
+    _check(tile1, "tile1", torch.int32, 1, device)
+    _check(tile2, "tile2", torch.int32, 1, device)
+    for table, name in zip(tables, ("chord2_table", "band_table")):
+        _check(table, name, torch.float32, 2, device)
+    _, channels, tile_size = lanes1.shape
+    if channels != 8 or tuple(lanes2.shape[1:]) != (8, tile_size):
+        raise ValueError("lanes must be (N, 8, T) with one tile size T")
+    if tile1.shape != tile2.shape:
+        raise ValueError("'tile1' and 'tile2' differ in length")
+    if len({table.shape for table in tables}) > 1:
+        raise ValueError("'band_table' and 'chord2_table' differ in shape")
+    if lanes2.data_ptr() % 16:
+        raise ValueError("'lanes2' must be 16-byte aligned (cp.async)")
+    chunks = tile_size // CHUNK_SIZE
+    runs = -(-chunks // FLAG_ITEM_CHUNKS)
+    if tile_size % CHUNK_SIZE or chunks * runs >= 1 << 16:
+        raise ValueError(f"the flag kernel takes no tiles of {tile_size} points")
+    return chunks, runs
+
+
+def _flag_workspace(lanes1, num_pairs, chunks, runs):
+    """One int32 allocation from PyTorch's caching allocator, for one call:
+    the two counters, C1's ``(P * K * G, 2)`` work list and C0's ``(N1,
+    K)`` float32 reach, in this order (the work list 8-byte aligned), and
+    the byte offsets of the last two."""
+    num_items = num_pairs * chunks * runs
+    workspace = torch.empty(
+        2 + 2 * num_items + len(lanes1) * chunks, dtype=torch.int32,
+        device=lanes1.device,
+    )
+    return workspace, 8, 8 + 8 * num_items
+
+
 def boundary_flags_cuda(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
@@ -442,52 +516,123 @@ def boundary_flags_cuda(
     8, T)`` float32 tiles on a CUDA device (``T`` a multiple of 32: the
     kernel reads the lanes' chunk caps, :func:`_device_caps`), ``tile*``
     int32 indices, ``chord2_table`` and ``band_table`` ``(B, E)``
-    float32. One launch per group of 16 edges, on the current stream,
-    without synchronising. Raises for tensors the kernel does not take."""
+    float32. Three launches (reach, triage, evaluation) per group of 16
+    edges, on the current stream, without synchronising; the workspace is
+    allocated per call. Raises for tensors the kernel does not take."""
+    chunks, runs = _check_flag_inputs(
+        lanes1, lanes2, tile1, tile2, chord2_table, band_table
+    )
     device = lanes1.device
-    if device.type != "cuda":
-        raise ValueError(f"the flag kernel needs CUDA tensors, got {device}")
-    _check(lanes1, "lanes1", torch.float32, 3, device)
-    _check(lanes2, "lanes2", torch.float32, 3, device)
-    _check(tile1, "tile1", torch.int32, 1, device)
-    _check(tile2, "tile2", torch.int32, 1, device)
-    _check(chord2_table, "chord2_table", torch.float32, 2, device)
-    _check(band_table, "band_table", torch.float32, 2, device)
-    _, channels, tile_size = lanes1.shape
-    if channels != 8 or tuple(lanes2.shape[1:]) != (8, tile_size):
-        raise ValueError("lanes must be (N, 8, T) with one tile size T")
-    if tile1.shape != tile2.shape:
-        raise ValueError("'tile1' and 'tile2' differ in length")
-    if band_table.shape != chord2_table.shape:
-        raise ValueError("'band_table' and 'chord2_table' differ in shape")
     num_pairs = len(tile1)
     num_bins, num_edges = chord2_table.shape
     caps1, caps2 = _device_caps(lanes1), _device_caps(lanes2)
-    flags = torch.empty(num_pairs, dtype=torch.bool, device=device)
+    flags = torch.zeros(num_pairs, dtype=torch.bool, device=device)
     if num_pairs == 0:
         return flags
 
     build()
+    workspace, items, reach = _flag_workspace(lanes1, num_pairs, chunks, runs)
+    counters = workspace.data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for edge0 in range(0, num_edges, MAX_EDGES_PER_LAUNCH):
             status = _libs[0].yawt_boundary_flags(
                 lanes1.data_ptr(), lanes2.data_ptr(), caps1.data_ptr(),
                 caps2.data_ptr(), tile1.data_ptr(), tile2.data_ptr(),
-                num_pairs, chord2_table.data_ptr(), band_table.data_ptr(),
-                num_bins, num_edges, edge0,
-                min(MAX_EDGES_PER_LAUNCH, num_edges - edge0), tile_size,
-                int(cols_binned), flags.data_ptr(), stream,
+                len(lanes1), num_pairs, chord2_table.data_ptr(),
+                band_table.data_ptr(), num_bins, num_edges, edge0,
+                min(MAX_EDGES_PER_LAUNCH, num_edges - edge0),
+                lanes1.shape[2], int(cols_binned), counters + reach,
+                counters + items, counters, flags.data_ptr(), stream,
             )
-            if status == _SHARED_MEMORY_EXCEEDED:
-                raise ValueError(
-                    f"boundary_flags: tiles of {tile_size} points with "
-                    f"{num_bins} bins need more shared memory than one block "
-                    "of this card has"
-                )
             _raise_on_error(status, "boundary_flags")
-            launch_counts["boundary_flags"] += 1
+            for name in FLAG_KERNELS:
+                launch_counts[name] += 1
     return flags
+
+
+def flag_reach_cuda(
+    lanes1: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    edge0: int = 0,
+) -> torch.Tensor:
+    """``(N1, T / 32)`` float32: kernel C's first launch (C0) alone, the
+    reach of every row chunk for the edges ``[edge0, edge0 + 16)``, as
+    :func:`boundary_flags_cuda` launches it (plain mirror:
+    :func:`~yet_another_wizz_tpu_torch.ops.paircount.chunk_reach` of those
+    edges). On the current stream, without synchronising."""
+    index = torch.zeros(0, dtype=torch.int32, device=lanes1.device)
+    chunks, runs = _check_flag_inputs(
+        lanes1, lanes1, index, index, chord2_table, band_table
+    )
+    num_bins, num_edges = chord2_table.shape
+    workspace, _, reach = _flag_workspace(lanes1, 0, chunks, runs)
+    build()
+    with torch.cuda.device(lanes1.device):
+        status = _libs[0].yawt_flag_reach(
+            lanes1.data_ptr(), _device_caps(lanes1).data_ptr(), len(lanes1),
+            chord2_table.data_ptr(), band_table.data_ptr(), num_bins,
+            num_edges, edge0, min(MAX_EDGES_PER_LAUNCH, num_edges - edge0),
+            lanes1.shape[2], workspace.data_ptr() + reach,
+            workspace.data_ptr(),
+            torch.cuda.current_stream(lanes1.device).cuda_stream,
+        )
+        _raise_on_error(status, "boundary_flags_reach")
+        launch_counts["boundary_flags_reach"] += 1
+    return workspace[reach // 4 :].view(torch.float32).view(len(lanes1), chunks)
+
+
+def flag_triage_cuda(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    reach: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    flags: torch.Tensor | None = None,
+    edge0: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's second launch (C1) alone, after :func:`flag_reach_cuda`:
+    ``(items, length)``, the ``(P * K * G, 2)`` int32 work list, whose first
+    ``length`` rows (a one-element int32 tensor on the card) hold ``(entry,
+    unit << 16 | mask)`` in the order of the atomics. With ``edge0 > 0``
+    the entries set in ``flags`` get no items. On the current stream,
+    without synchronising; :func:`decode_work_items` sorts the list."""
+    chunks, runs = _check_flag_inputs(lanes1, lanes2, tile1, tile2)
+    if edge0 > 0 and flags is None:
+        raise ValueError("a later group of edges needs the earlier flags")
+    num_pairs = len(tile1)
+    workspace, items, _ = _flag_workspace(lanes1, num_pairs, chunks, runs)
+    workspace[:2].zero_()
+    build()
+    with torch.cuda.device(lanes1.device):
+        status = _libs[0].yawt_flag_triage(
+            _device_caps(lanes1).data_ptr(), _device_caps(lanes2).data_ptr(),
+            reach.data_ptr(), tile1.data_ptr(), tile2.data_ptr(), num_pairs,
+            lanes1.shape[2], edge0, int(cols_binned),
+            None if flags is None else flags.data_ptr(),
+            workspace.data_ptr() + items, workspace.data_ptr(),
+            torch.cuda.current_stream(lanes1.device).cuda_stream,
+        )
+        _raise_on_error(status, "boundary_flags_triage")
+        launch_counts["boundary_flags_triage"] += 1
+    return workspace[2 : 2 + 2 * num_pairs * chunks * runs].view(-1, 2), workspace[:1]
+
+
+def decode_work_items(items: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """``(M, 3)`` int64 ``(entry, unit, mask)`` on the host, sorted: the
+    work list of :func:`flag_triage_cuda` in the layout of its plain mirror
+    :func:`~yet_another_wizz_tpu_torch.ops.paircount.flag_work_items`.
+    Synchronises."""
+    words = items[: int(length.item())].cpu().long() & 0xFFFFFFFF
+    decoded = torch.stack(
+        [words[:, 0], words[:, 1] >> 16, words[:, 1] & 0xFFFF], dim=1
+    )
+    order = torch.argsort(decoded[:, 0] * (1 << 16) + decoded[:, 1])
+    return decoded[order]
 
 
 class _PairIndex:

@@ -72,8 +72,10 @@ __all__ = [
     "boundary_flags",
     "boundary_flags_torch",
     "chunk_keep_mask",
+    "chunk_reach",
     "count_pairs_tiles",
     "count_pairs_torch",
+    "flag_work_items",
     "pair_block_boundary",
     "pair_block_counts",
     "partial_counts_torch",
@@ -223,6 +225,33 @@ def partial_counts_torch(
     return partial
 
 
+def chunk_reach(
+    lanes1: torch.Tensor,
+    caps1: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``(N1, K)`` float32, ``K = T / 32``: how far each row chunk reaches
+    in chord, ``sqrt(m) + r_row`` with ``m`` the largest threshold of its
+    rows of nonzero weight (``-inf`` for a chunk without such rows), in the
+    kernels' float32 operations. ``caps1`` are the row tiles'
+    :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`,
+    ``chord2_table`` one launch's edges; with ``band_table`` each threshold
+    is widened to ``t + band`` (a float32 sum), the flag kernel's reach
+    (``csrc/paircount.cu``, ``flag_reach_kernel``)."""
+    num_tiles, _, tile_size = lanes1.shape
+    bins = lanes1[:, CHANNEL_ZBIN].long().clamp(0, chord2_table.shape[0] - 1)
+    if band_table is not None:
+        chord2_table = chord2_table + band_table
+    largest = chord2_table.amax(dim=1)[bins]  # (N1, T)
+    largest = torch.where(lanes1[:, CHANNEL_WEIGHT] != 0, largest, -1.0)
+    largest = largest.view(num_tiles, tile_size // CHUNK_SIZE, CHUNK_SIZE)
+    largest = largest.amax(dim=2)  # (N1, K)
+    return torch.where(
+        largest < 0, float("-inf"), largest.clamp(min=0).sqrt() + caps1[..., 3]
+    )
+
+
 def chunk_keep_mask(
     lanes1: torch.Tensor,
     caps1: torch.Tensor,
@@ -240,26 +269,15 @@ def chunk_keep_mask(
     ``chunk_reaches``). ``lanes1`` are the row tiles, ``caps*`` the
     tile sets' :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`,
     ``chord2_table`` one launch's edges. A row chunk reaches as far
-    as the largest threshold of its rows of nonzero weight; a block is
-    dropped when the caps lie farther apart than the radii plus that
-    chord or, with binned columns, when their bin ranges are disjoint.
-    With ``band_table`` (``(B, E)`` float32) each threshold is widened to
-    ``t + band`` (a float32 sum), the reach of the flag kernel. The
-    plain engine (:func:`pair_block_counts`) and the plain flag pass
-    evaluate every pair; this mirror serves the tests and the chip smoke
-    run's kept share."""
+    as :func:`chunk_reach`; a block is dropped when the caps lie farther
+    apart than the radii plus that chord or, with binned columns, when
+    their bin ranges are disjoint. With ``band_table`` (``(B, E)``
+    float32) each threshold is widened to ``t + band``, the reach of the
+    flag kernel's triage. The plain engine (:func:`pair_block_counts`) and
+    the plain flag pass evaluate every pair; this mirror serves the tests
+    and the chip smoke run's kept share."""
     tile1, tile2 = tile1.long(), tile2.long()
-    num_tiles, _, tile_size = lanes1.shape
-    bins = lanes1[:, CHANNEL_ZBIN].long().clamp(0, chord2_table.shape[0] - 1)
-    if band_table is not None:
-        chord2_table = chord2_table + band_table
-    largest = chord2_table.amax(dim=1)[bins]  # (N1, T)
-    largest = torch.where(lanes1[:, CHANNEL_WEIGHT] != 0, largest, -1.0)
-    largest = largest.view(num_tiles, tile_size // CHUNK_SIZE, CHUNK_SIZE)
-    largest = largest.amax(dim=2)  # (N1, K)
-    reach = torch.where(
-        largest < 0, float("-inf"), largest.clamp(min=0).sqrt() + caps1[..., 3]
-    )
+    reach = chunk_reach(lanes1, caps1, chord2_table, band_table)
     row_caps = caps1[tile1][:, :, None, :]  # (P, K, 1, 8)
     col_caps = caps2[tile2][:, None, :, :]  # (P, 1, K, 8)
     limit = reach[tile1][:, :, None] + col_caps[..., 3]
@@ -272,6 +290,49 @@ def chunk_keep_mask(
         )
         keep &= ~disjoint
     return keep
+
+
+FLAG_ITEM_CHUNKS = 16
+"""Column chunks one work item of the flag kernel covers (its mask's
+bits)."""
+
+
+def flag_work_items(
+    lanes1: torch.Tensor,
+    caps1: torch.Tensor,
+    caps2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    band_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    flags: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``(M, 3)`` int64 ``(entry, unit, mask)``: the work list of the flag
+    kernel's triage (``csrc/paircount.cu``, ``flag_triage_kernel``), its
+    plain mirror, sorted. The blocks that :func:`chunk_keep_mask` keeps
+    with ``band_table`` are grouped by row chunk ``r`` and by runs of
+    :data:`FLAG_ITEM_CHUNKS` column chunks ``g``: an item for each
+    ``(entry, r, g)`` that keeps any, with ``unit = r * G + g`` (``G`` runs
+    per row chunk) and bit ``i`` of ``mask`` for column chunk ``g *``
+    :data:`FLAG_ITEM_CHUNKS` ``+ i``. Entries set in ``flags`` (``(P,)``
+    bool, flagged by an earlier group of edges) get none. An entry without
+    items has flag 0: none of its pairs is evaluated."""
+    keep = chunk_keep_mask(
+        lanes1, caps1, caps2, tile1, tile2, chord2_table,
+        cols_binned=cols_binned, band_table=band_table,
+    )
+    if flags is not None:
+        keep &= ~flags[:, None, None]
+    num_pairs, num_chunks, _ = keep.shape
+    runs = -(-num_chunks // FLAG_ITEM_CHUNKS)
+    keep = torch.nn.functional.pad(keep, (0, runs * FLAG_ITEM_CHUNKS - num_chunks))
+    keep = keep.view(num_pairs, num_chunks, runs, FLAG_ITEM_CHUNKS)
+    bits = 1 << torch.arange(FLAG_ITEM_CHUNKS, device=keep.device)
+    mask = (keep.long() * bits).sum(dim=3)  # (P, K, G)
+    entry, row, run = mask.nonzero(as_tuple=True)
+    return torch.stack([entry, row * runs + run, mask[entry, row, run]], dim=1)
 
 
 def segment_sum_torch(
