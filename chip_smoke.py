@@ -96,6 +96,20 @@ kmeans patches, 11 redshift bins), through the entry points a user calls:
   the card and every launch names ``cuda:0``. Where ``h5py`` is not
   installed, the pair counts are stored through the stand-in of
   ``scripts/torch_h5py_standin.py``.
+- surface (slice 12), after the timed paths: the headline's catalogs with
+  their tile caches dropped, ``Catalog.build_trees`` on the card (reference
+  and randoms with the measurement's largest angle, the unknown sample
+  unbinned), then ``crosscorrelate`` + n(z): it builds no tile set, uploads
+  no lanes and derives no chunk caps (spies), runs K1.1 and kernel B and no
+  plain engine on the card, and its DD and RD counts are the main path's
+  bit for bit; the times of ``build_trees``, that measurement, the
+  headline's warm median and a cold measurement without ``build_trees``.
+  Then ``RandomReader`` over 1M ``HealPixRandoms`` (the survey's mask, nside
+  and seed) in chunks of 250k streamed by ``write_patches_streaming`` into a
+  cache, patch assignment on the card against the headline's 64 centers:
+  with ``keep_data=False`` it returns no data and the cache reads back 1M
+  rows; with ``keep_data=True`` it writes the same files byte for byte and
+  returns the cache's rows; the host memory each adds is logged;
 - survey-scale proofs, at a reduced size, each script in a subprocess on
   the card: ``scripts/torch_survey_proof.py`` at 4M rows (Parquet
   streamed into caches in 2, 4 and 5 reader rounds, 128 kmeans patches,
@@ -259,6 +273,9 @@ MP_PROCESSES = 2
 MP_TIMEOUT = 300
 """Seconds the two-process phase waits for its children."""
 CATALOG_NAMES = ("reference", "unknown", "randoms")
+SURFACE_RANDOMS = 1_000_000
+SURFACE_CHUNK = 250_000
+SURFACE_BUFFERSIZE = 2_048
 SOURCE = "yet_another_wizz_tpu_torch/csrc/paircount.cu"
 REPLACES = "yet_another_wizz_tpu/ops/pallas_paircount.py:58"
 FLAGS_REPLACE = "yet_another_wizz_tpu/ops/paircount.py:257"
@@ -2896,6 +2913,222 @@ def proof_phase(card: str, launches_total: dict) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+# -- slice 12: build_trees warming the card, streaming ingestion ------------
+
+
+@contextlib.contextmanager
+def warm_spy():
+    """Counts, while active, the tile sets built (``build_tile_set`` as the
+    catalog calls it), the lane uploads (``TileSet.device_data``'s
+    ``_Upload``) and the chunk caps derived (``chunk_caps`` as the kernel
+    wrapper calls it)."""
+    from yet_another_wizz_tpu_torch.catalog import catalog as catalog_module
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount, tiles
+
+    targets = (
+        (catalog_module, "build_tile_set"), (tiles, "_Upload"),
+        (cuda_paircount, "chunk_caps"),
+    )
+    counts = dict.fromkeys((name for _, name in targets), 0)
+    saved = []
+    for module, name in targets:
+        original = getattr(module, name)
+
+        def counted(*args, _original=original, _name=name, **kwargs):
+            counts[_name] += 1
+            return _original(*args, **kwargs)
+
+        saved.append((module, name, original))
+        setattr(module, name, counted)
+    try:
+        yield counts
+    finally:
+        for module, name, original in saved:
+            setattr(module, name, original)
+
+
+def surface_warm(card, config, catalogs, wsp, headline_warm, launches_total) -> None:
+    """``build_trees`` on the card before the headline measurement: the
+    measurement after it builds no tile set, uploads no lanes and derives no
+    chunk caps, runs K1.1 and kernel B as CUDA kernels and no plain engine on
+    the card, and its DD and RD counts are the main path's bit for bit."""
+    import numpy as np
+    import torch
+
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+
+    reference, unknown, randoms = catalogs
+
+    def measure():
+        (corr,) = crosscorrelate(
+            config, reference, unknown, ref_rand=randoms, device="cuda"
+        )
+        nz = RedshiftData.from_corrfuncs(corr)
+        torch.cuda.synchronize()
+        return corr, nz
+
+    def drop_tiles():
+        for catalog in catalogs:
+            catalog.drop_tile_cache()
+        torch.cuda.synchronize()
+
+    drop_tiles()
+    t0 = time.perf_counter()
+    measure()
+    cold = time.perf_counter() - t0
+
+    drop_tiles()
+    max_angle = PatchLinkage.from_catalogs(config, *catalogs).edges.max_angle
+    binning = config.binning.binning
+    t0 = time.perf_counter()
+    for catalog in (reference, randoms):
+        catalog.build_trees(
+            binning.edges, closed=binning.closed, max_angle=max_angle, device="cuda"
+        )
+    unknown.build_trees(None, device="cuda")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    layouts = {
+        name: sorted(key[4] for key in catalog._tile_cache)
+        for name, catalog in zip(CATALOG_NAMES, catalogs)
+    }
+
+    cuda_paircount.reset_launch_counts()
+    with warm_spy() as built, EngineSpy() as engine:
+        t0 = time.perf_counter()
+        corr, nz = measure()
+        first = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    log(f"surface: build_trees ({max_angle:.6e} rad, layouts {layouts}), then "
+        f"crosscorrelate + n(z): built and uploaded in the measurement {built}, "
+        f"launches {launches}, kernel devices {sorted(engine.kernel_devices)}, "
+        f"plain engine devices {sorted(engine.plain_devices)}")
+    check(not any(built.values()), f"surface: the measurement after build_trees built {built}")
+    for variant in ("paircount_partials", "paircount_segment_sum"):
+        check(launches.get(variant, 0) >= 2, f"surface: {variant} launched {launches}")
+    check(bool(engine.kernel_devices)
+          and all(d.startswith("cuda") for d in engine.kernel_devices),
+          f"surface: kernel wrappers called on {engine.kernel_devices}")
+    check(not any(d.startswith("cuda") for d in engine.plain_devices),
+          "surface: the plain engine ran on the card")
+    for name in ("dd", "rd"):
+        check(np.array_equal(getattr(corr, name).counts.counts,
+                             getattr(wsp, name).counts.counts),
+              f"surface: {name.upper()} after build_trees differs from the main path's")
+    check_nz(nz, "surface", reference.num_patches)
+    for variant, count in launches.items():
+        launches_total[variant] = launches_total.get(variant, 0) + count
+    log(f"[{card}] surface: build_trees {build:.4f} s (reference and randoms with "
+        f"max_angle, unknown unbinned); first crosscorrelate + n(z) after it "
+        f"{first:.4f} s; headline warm median {headline_warm:.4f} s; cold first "
+        f"measurement without build_trees {cold:.4f} s")
+
+
+def surface_ingest(card, reference) -> None:
+    """``RandomReader`` over ``HealPixRandoms`` (the survey's mask, nside
+    and seed, the headline reference's redshifts) streamed in chunks of
+    250k into a cache, with the patch assignment on the card against the
+    headline reference's centers: without ``keep_data`` the function
+    returns no data and the cache reads back every row; with ``keep_data``,
+    from a generator of the same seed, it writes the same files byte for
+    byte and returns the cache's rows. Logs the host memory each adds."""
+    import filecmp
+    import gc
+    import shutil
+    import tempfile
+    import tracemalloc
+
+    import numpy as np
+
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.catalog.ingest import write_patches_streaming
+    from yet_another_wizz_tpu_torch.catalog.readers import RandomReader
+    from yet_another_wizz_tpu_torch.ops import kmeans
+    from yet_another_wizz_tpu_torch.randoms import HealPixRandoms
+    from yet_another_wizz_tpu_torch.utils.healpix import pix2ang_ring
+
+    colat, lon = pix2ang_ring(SURVEY_NSIDE, np.arange(12 * SURVEY_NSIDE**2))
+    ra, dec = np.rad2deg(lon), 90.0 - np.rad2deg(colat)
+    mask = ((ra >= 40) & (ra <= 60) & (dec >= -10) & (dec <= 10)).astype(float)
+    centers = reference.get_centers().to_3d()
+    root = tempfile.mkdtemp(prefix="yawt_surface_")
+    threshold = kmeans.DEVICE_ASSIGN_THRESHOLD
+    kmeans.DEVICE_ASSIGN_THRESHOLD = 0  # every chunk's assignment on the card
+    try:
+        # the first ingestion's one-time costs (imports, the writer thread's
+        # start) are paid here, outside the measured two
+        write_patches_streaming(
+            RandomReader(HealPixRandoms(mask, seed=1), 2 * SURFACE_BUFFERSIZE,
+                         chunksize=SURFACE_BUFFERSIZE),
+            os.path.join(root, "warm_up"), centers[:1], device="cuda",
+        )
+        runs = {}
+        for keep in (False, True):
+            reader = RandomReader(
+                HealPixRandoms(mask, redshifts=reference.redshifts, seed=SURVEY_RANDOM_SEED),
+                SURFACE_RANDOMS, chunksize=SURFACE_CHUNK,
+            )
+            cache = os.path.join(root, f"keep_{keep}")
+            gc.collect()
+            base = host_memory()
+            tracemalloc.start()
+            with MemorySampler() as sampler:
+                t0 = time.perf_counter()
+                num, assembled = write_patches_streaming(
+                    reader, cache, centers, buffersize=SURFACE_BUFFERSIZE,
+                    keep_data=keep, device="cuda",
+                )
+                seconds = time.perf_counter() - t0
+            peak = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+            rss = sampler.peak["VmRSS"] - base["VmRSS"]
+            runs[keep] = (num, assembled, cache)
+            log(f"[{card}] surface ingest keep_data={keep}: {SURFACE_RANDOMS} rows in "
+                f"chunks of {SURFACE_CHUNK}, buffersize {SURFACE_BUFFERSIZE}, {num} "
+                f"patches, {seconds:.3f} s; host memory added: tracemalloc peak "
+                f"{peak / 2**20:.1f} MiB, VmRSS peak growth {rss / 2**20:.1f} MiB")
+        num, assembled, streamed = runs[False]
+        check(assembled is None, "surface ingest: keep_data=False returned data")
+        check(num == NUM_PATCHES, f"surface ingest: {num} patches")
+        catalog = Catalog(streamed)
+        check(sum(catalog.get_num_records()) == SURFACE_RANDOMS,
+              "surface ingest: the cache does not read back every row")
+        kept_num, (chunk, patch_ids), kept = runs[True]
+        check(kept_num == num, "surface ingest: keep_data=True has other patches")
+        names = sorted(
+            os.path.relpath(os.path.join(d, f), streamed)
+            for d, _, files in os.walk(streamed) for f in files
+        )
+        check(len(names) == 2 * NUM_PATCHES + 1, f"surface ingest: files {len(names)}")
+        for name in names:
+            check(filecmp.cmp(os.path.join(streamed, name), os.path.join(kept, name),
+                              shallow=False),
+                  f"surface ingest: {name} differs between keep_data=False and True")
+        for field in chunk.dtype.names:
+            check(np.array_equal(chunk[field], getattr(catalog, field)),
+                  f"surface ingest: returned {field} differs from the cache's")
+        check(np.array_equal(patch_ids, catalog.patch_ids),
+              "surface ingest: returned patch ids differ from the cache's")
+        log(f"surface ingest: {len(names)} files byte-identical, returned rows "
+            f"equal the cache's ({sorted(chunk.dtype.names)})")
+    finally:
+        kmeans.DEVICE_ASSIGN_THRESHOLD = threshold
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def surface_phase(card, config, catalogs, wsp, headline_warm, launches_total) -> None:
+    """Slice 12 at the headline's size: :func:`surface_warm`, then
+    :func:`surface_ingest`."""
+    t0 = time.perf_counter()
+    surface_warm(card, config, catalogs, wsp, headline_warm, launches_total)
+    surface_ingest(card, catalogs[0])
+    log(f"[{card}] surface phase {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> None:
     card = environment()
@@ -3144,8 +3377,10 @@ def main() -> None:
         ),
     }
     torch.cuda.reset_peak_memory_stats()
+    warm_medians = {}
     for label, (fn, path_config, counts, runs) in paths.items():
         warm, lo, hi = warm_time(fn, runs)
+        warm_medians[label] = warm
         links = PatchLinkage.from_catalogs(path_config, *catalogs)
         candidates = 0
         for count in counts:
@@ -3162,6 +3397,10 @@ def main() -> None:
             f"{warm * 1e3:.3f} ms warm measurement")
     log(f"peak device memory over the timed paths "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    log("-- surface: build_trees on the card, streaming ingestion from a generator")
+    surface_phase(card, config, catalogs, wsp,
+                  warm_medians["main (crosscorrelate + n(z))"], launches_total)
 
     t0 = time.perf_counter()
     log("-- sharded: crosscorrelate in every layout, autocorrelate and config B "

@@ -376,6 +376,23 @@ def test_module_entry_point(inputs, tmp_path):
     assert (tmp_path / "project" / "true" / "nz_true_2.dat").exists()
 
 
+def test_installed_command_names_the_port():
+    """``pyproject.toml`` installs the port's command line as
+    ``yaw_cli_torch``, resolving to its ``main``, beside the JAX package's
+    unchanged ``yaw_cli``."""
+    import importlib
+    import tomllib
+
+    from yet_another_wizz_tpu_torch.cli import commandline
+
+    with open(REPO_ROOT / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["yaw_cli"] == "yet_another_wizz_tpu.cli.commandline:main"
+    module, _, name = scripts["yaw_cli_torch"].partition(":")
+    entry = getattr(importlib.import_module(module), name)
+    assert callable(entry) and entry is commandline.main
+
+
 def test_cli_error_reporting(tmp_path, capsys):
     assert port_main([str(tmp_path / "project"), "--quiet", "--device", "cpu"]) == 1
     assert "ERROR" in capsys.readouterr().err

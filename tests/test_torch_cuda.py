@@ -29,6 +29,8 @@ the engineered on-edge pair of ``torch_audit_cases.py`` and the streamed
 windows of host-gathered lanes; its reach and its work list equal their
 plain mirrors (``chunk_reach``, ``flag_work_items``); the audit repairs
 that pair's flip on the card, in memory and blocked, through the kernel.
+After ``Catalog.build_trees`` on the card, a measurement uploads no lanes,
+derives no chunk caps and builds no tile set.
 """
 
 import numpy as np
@@ -820,3 +822,65 @@ def test_parquet_ingestion_in_two_rounds_on_the_card(device, tmp_path, monkeypat
             two = (tmp_path / "two" / f"patch_{pid}" / file).read_bytes()
             one = (tmp_path / "one" / f"patch_{pid}" / file).read_bytes()
             assert two == one, (pid, file)
+
+
+def test_measurement_after_build_trees_uploads_and_builds_nothing(device, monkeypatch):
+    """After ``build_trees`` on the card, a crosscorrelation builds no tile
+    set, uploads no lanes and derives no chunk caps, and its counts equal,
+    bit for bit, those of catalogs that built and uploaded on demand."""
+    from yet_another_wizz_tpu_torch.catalog import Catalog
+    from yet_another_wizz_tpu_torch.catalog import catalog as catalog_module
+    from yet_another_wizz_tpu_torch.config import Configuration
+    from yet_another_wizz_tpu_torch.correlation.measurements import (
+        PatchLinkage,
+        crosscorrelate,
+    )
+    from yet_another_wizz_tpu_torch.examples import generate_mock_data
+    from yet_another_wizz_tpu_torch.ops import tiles
+
+    mock = generate_mock_data(
+        num_reference=4000, num_unknown=6000, num_randoms=9000, seed=21
+    )
+    centers = Catalog.from_arrays(
+        **mock["reference"], degrees=False, patch_num=12, device=device
+    ).get_centers()
+
+    def catalogs():
+        return [
+            Catalog.from_arrays(**mock[n], degrees=False, patch_centers=centers, device=device)
+            for n in ("reference", "unknown", "randoms")
+        ]
+
+    config = Configuration.create(
+        rmin=500, rmax=3000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=4
+    )
+    reference, unknown, randoms = catalogs()
+    (expected,) = crosscorrelate(config, reference, unknown, ref_rand=randoms, device=device)
+
+    reference, unknown, randoms = catalogs()
+    max_angle = PatchLinkage.from_catalogs(config, reference, unknown, randoms).edges.max_angle
+    for catalog in (reference, randoms):
+        catalog.build_trees(config.binning.binning.edges, max_angle=max_angle, device=device)
+    unknown.build_trees(None, device=device)
+    events = []
+
+    def spy(module, name):
+        original = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            events.append(name)
+            return original(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+
+    spy(catalog_module, "build_tile_set")
+    spy(tiles, "_Upload")
+    spy(cuda_paircount, "chunk_caps")
+    cuda_paircount.reset_launch_counts()
+    (warmed,) = crosscorrelate(config, reference, unknown, ref_rand=randoms, device=device)
+    assert events == []
+    assert cuda_paircount.launch_counts["paircount_partials"] == 2
+    for name in ("dd", "rd"):
+        np.testing.assert_array_equal(
+            getattr(warmed, name).counts.counts, getattr(expected, name).counts.counts
+        )

@@ -6,6 +6,12 @@ the package and rebuilt when the source is newer. Every consumer checks
 :func:`enabled` and falls back to numpy when no compiler is available.
 
 Set ``YAWT_DISABLE_NATIVE=1`` to force the numpy implementations.
+
+The JAX package's host ingestion helpers (``assign_patches_radec``,
+``counting_argsort_ids``, ``gather_rows``, ``gather_i32_to_f64``, the
+``NATIVE_ENABLED`` flag) and its fixed-point encoder are not bound: the
+port assigns large chunks to patches on the card, splits them with numpy
+and asks :func:`enabled` (``ROADMAP.md``, R6 and R7).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from yet_another_wizz_tpu_torch.utils.misc import (
 __all__ = [
     "assign_patches",
     "enabled",
+    "env_flag",
     "filter_tile_pairs",
     "gather_f64",
     "gather_i32",

@@ -7,7 +7,9 @@ path: :meth:`Catalog.from_arrays` with the three patch-creation modes
 :meth:`Catalog.get_tiles`, which packs the catalog into the point tiles of
 the pair-count engine (:class:`~yet_another_wizz_tpu_torch.ops.tiles.TileSet`,
 the replacement for the reference's per-patch kd-trees; cached per
-(binning, counting-mode) fingerprint). The constructors from files,
+(binning, counting-mode) fingerprint), and :meth:`Catalog.build_trees`,
+which builds ahead of a measurement the tile sets it will ask for and, on a
+card, uploads them. The constructors from files,
 dataframes and random generators, the on-disk patch cache
 (``patch_{i}/data.bin`` + ``meta.yml`` + ``patch_ids.bin``, byte-compatible
 with the JAX package's: a cache written by either package opens in the
@@ -38,6 +40,7 @@ from yet_another_wizz_tpu_torch.catalog.patch import (
 )
 from yet_another_wizz_tpu_torch.ops.kmeans import assign_patches, kmeans_patch_centers
 from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE, build_tile_set
+from yet_another_wizz_tpu_torch.options import Closed
 
 if TYPE_CHECKING:
     from collections.abc import Iterator
@@ -672,7 +675,7 @@ class Catalog(Mapping):
                     # read-back)
                     num_patches, (chunk, patch_ids) = write_patches_streaming(
                         reader, cache_directory, centers, overwrite=overwrite,
-                        progress=progress, device=device,
+                        progress=progress, keep_data=True, device=device,
                     )
                     return cls._from_streamed(
                         chunk, patch_ids, num_patches, cache_directory,
@@ -893,6 +896,70 @@ class Catalog(Mapping):
         return AngularDistances(self.patch_radii)
 
     # -- device tiles (the kd-tree replacement) -----------------------------
+
+    def build_trees(
+        self,
+        binning: ArrayLike | None,
+        *,
+        closed: Closed | str = Closed.right,
+        leafsize: int = DEFAULT_TILE_SIZE,
+        force: bool = False,
+        progress: bool = False,
+        max_workers: int | None = None,
+        max_angle: float | None = None,
+        device: torch.device | str = "cuda",
+    ) -> None:
+        """Pre-build the tiles for a given redshift binning (API-compatible
+        with the reference's kd-tree building entry point; ``leafsize`` maps
+        onto the tile size).
+
+        Binned tile sets are built in the ``zmajor`` layout, the one
+        equal-bin counting (autocorrelations, binned data-random counts)
+        always requests. Pass ``max_angle`` (the maximum angular scale of
+        the upcoming measurement, in radians) to also build the layout a
+        binned-rows/unbinned-columns cross-correlation will pick for this
+        catalog; without it that choice cannot be made here and the
+        measurement may build one more tile set on demand. ``force`` drops
+        the cached tile sets first. ``progress`` and ``max_workers`` are
+        accepted for the reference's signature; the build runs in the
+        calling thread.
+
+        On a CUDA ``device`` (the default, which raises when CUDA is not
+        available) each built tile set's lanes are also uploaded, and the
+        chunk caps the cumulative kernels read are derived from them, so
+        that a following single-device measurement on that card finds
+        them in place. The threshold tables and the direct mode's entry
+        layout belong to a measurement's configuration, not to a catalog,
+        and are built by the measurement. With ``device="cpu"`` only the
+        host tiles are built.
+        """
+        from yet_another_wizz_tpu_torch.binning import Binning
+        from yet_another_wizz_tpu_torch.ops.paircount import resolve_device
+        from yet_another_wizz_tpu_torch.ops.tiles import preferred_tile_layout
+
+        device = resolve_device(device)
+        binning = None if binning is None else Binning(binning, closed=closed)
+        if force:
+            self._tile_cache.clear()
+        layouts = {"spatial"} if binning is None else {"zmajor"}
+        if binning is not None and max_angle is not None:
+            layouts.add(
+                preferred_tile_layout(
+                    self, len(binning), max_angle,
+                    equal_bin_counting=False, tile_size=leafsize,
+                )
+            )
+        tile_sets = [
+            self.get_tiles(binning, tile_size=leafsize, layout=layout)
+            for layout in sorted(layouts)
+        ]
+        if device.type == "cuda":
+            from yet_another_wizz_tpu_torch.ops.cuda_paircount import (
+                prepare_lanes,
+            )
+
+            for tiles in tile_sets:
+                prepare_lanes(tiles, device)
 
     def drop_tile_cache(self) -> None:
         """Release all cached tile sets (and their device-resident

@@ -9,9 +9,12 @@ the next chunk is assigned to its patches (on ``device`` for large chunks,
 see :func:`~yet_another_wizz_tpu_torch.ops.kmeans.assign_patches`).
 
 Used by :meth:`Catalog.from_file` when ``streaming=True`` (automatic for
-inputs larger than one chunk); in a multi-process job through
+inputs larger than one chunk), which keeps the assembled rows
+(``keep_data=True``); in a multi-process job through
 :func:`write_patches_collective`, where the root reads and every process
-writes the patches it owns.
+writes the patches it owns. Called with ``keep_data=False``,
+:func:`write_patches_streaming` ingests any reader (a file, a dataframe, a
+random generator) into a cache larger than memory.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from yet_another_wizz_tpu_torch.catalog.patch import (
+    DEFAULT_BUFFERSIZE,
     Metadata,
     PatchWriter,
     read_patch_data,
@@ -158,21 +162,31 @@ def write_patches_streaming(
     centers_xyz: NDArray | None,
     *,
     overwrite: bool = False,
+    buffersize: int | None = None,
     progress: bool = False,
+    keep_data: bool = False,
     device: torch.device | str = "cuda",
-) -> tuple[int, tuple[NDArray, NDArray]]:
+) -> tuple[int, tuple[NDArray, NDArray] | None]:
     """Stream a chunked reader through patch assignment.
 
     Per chunk: assign patch ids (against the centers on ``device``, unless
     the chunk carries a patch-id column) and split the chunk by patch. With
-    a ``cache_directory`` the splits are appended to buffered per-patch
-    writers on disk; they are also assembled in memory (patch-major,
-    chunk-arrival order within each patch — byte identical to reading the
-    cache back) so the caller can construct the catalog directly without
-    the cache round trip.
+    a ``cache_directory`` the splits are appended to per-patch writers on
+    disk, each buffering ``buffersize`` rows (default
+    :data:`~yet_another_wizz_tpu_torch.catalog.patch.DEFAULT_BUFFERSIZE`);
+    without ``keep_data`` nothing of the catalog is kept beyond the chunks
+    in flight and the writers' buffers, and each patch's metadata is
+    computed from its file. With ``keep_data`` the splits are also
+    assembled in memory (patch-major, chunk-arrival order within each patch
+    — byte identical to reading the cache back) so the caller can construct
+    the catalog directly without the cache round trip;
+    ``cache_directory=None`` requires ``keep_data`` and skips the disk.
 
-    Returns ``(num_patches, (chunk, patch_ids))``.
+    Returns ``(num_patches, assembled)`` where ``assembled`` is None or a
+    ``(chunk, patch_ids)`` pair.
     """
+    if cache_directory is None and not keep_data:
+        raise ValueError("either a cache_directory or keep_data is required")
     cache = None
     if cache_directory is not None:
         from yet_another_wizz_tpu_torch.catalog.catalog import (
@@ -193,6 +207,7 @@ def write_patches_streaming(
 
         chunk_iter = Indicator(chunk_iter, reader.num_chunks)
 
+    buffersize = DEFAULT_BUFFERSIZE if buffersize is None else buffersize
     num_expected = 0 if centers_xyz is None else len(centers_xyz)
 
     # producer/writer overlap: reading + patch assignment of the next chunk
@@ -208,12 +223,14 @@ def write_patches_streaming(
             try:
                 info, splits = item
                 for pid, part in splits:
-                    parts.setdefault(pid, []).append(part)
+                    if keep_data:
+                        parts.setdefault(pid, []).append(part)
                     if cache is None:
                         continue
                     if pid not in writers:
                         writers[pid] = PatchWriter(
-                            cache / PATCH_NAME_TEMPLATE.format(pid), info
+                            cache / PATCH_NAME_TEMPLATE.format(pid), info,
+                            buffersize,
                         )
                     writers[pid].process_chunk(part)
             except BaseException as err:  # propagated to the producer
@@ -234,6 +251,8 @@ def write_patches_streaming(
             work.put((DataChunk.get_info(chunk), splits))
             if len(sorted_ids):
                 num_expected = max(num_expected, int(sorted_ids[-1]) + 1)
+            # hold no rows while the next chunk is read: the writer has them
+            del chunk, patch_ids, splits, sorted_ids
     finally:
         # the writer thread may already be dead (error) with the queue
         # full; a blocking put would then hang forever and swallow the real
@@ -254,26 +273,36 @@ def write_patches_streaming(
     if writer_error:
         raise writer_error[0]
 
-    missing = [pid for pid in range(num_expected) if pid not in parts]
+    seen = parts if keep_data else writers
+    missing = [pid for pid in range(num_expected) if pid not in seen]
     if missing:
         raise ValueError(f"patches with no data: {missing}")
-    num_patches = len(parts)
+    num_patches = len(seen)
 
-    # patch-major assembly in writer-append order: byte-identical to
-    # reading the finalized cache back
-    patch_arrays = [
-        np.concatenate(parts[pid]) if len(parts[pid]) > 1 else parts[pid][0]
-        for pid in range(num_patches)
-    ]
-    patch_ids = np.repeat(
-        np.arange(num_patches, dtype=np.int32),
-        [len(arr) for arr in patch_arrays],
-    )
+    assembled = None
+    if keep_data:
+        # patch-major assembly in writer-append order: byte-identical to
+        # reading the finalized cache back
+        patch_arrays = [
+            np.concatenate(parts[pid]) if len(parts[pid]) > 1 else parts[pid][0]
+            for pid in range(num_patches)
+        ]
+        parts.clear()
+        patch_ids = np.repeat(
+            np.arange(num_patches, dtype=np.int32),
+            [len(arr) for arr in patch_arrays],
+        )
+        assembled = (np.concatenate(patch_arrays), patch_ids)
 
     for pid, patch_writer in writers.items():
         patch_writer.finalize()
         # compute and store metadata now so reopening the cache is cheap
-        data = patch_arrays[pid]
+        # (from the in-memory patch data when it is kept, else from the
+        # patch's file, one patch at a time)
+        if keep_data:
+            data = patch_arrays[pid]
+        else:
+            _, data = read_patch_data(patch_writer.data_path)
         meta = Metadata.compute(
             DataChunk.get_coords(data),
             weights=DataChunk.getattr(data, "weights"),
@@ -294,7 +323,7 @@ def write_patches_streaming(
         reader.num_records,
         " to cache" if cache is not None else " in memory",
     )
-    return num_patches, (np.concatenate(patch_arrays), patch_ids)
+    return num_patches, assembled
 
 
 def write_patches_collective(
@@ -304,6 +333,7 @@ def write_patches_collective(
     *,
     overwrite: bool = False,
     progress: bool = False,
+    buffersize: int | None = None,
     device: torch.device | str = "cuda",
 ) -> int:
     """Multi-process streaming ingestion (the JAX package's
@@ -315,8 +345,9 @@ def write_patches_collective(
     cache writing, metadata computation and file I/O run in parallel, the
     analogue of the reference's reader/writer rank split
     (yaw/catalog/catalog.py:587-908). All processes must share the cache
-    file system. The cache equals, byte for byte, the single-process
-    streaming ingest's.
+    file system. ``buffersize`` sets the rows each patch writer buffers, as
+    in :func:`write_patches_streaming`. The cache equals, byte for byte, the
+    single-process streaming ingest's.
 
     Errors: a root-side reader error is broadcast in the stream and raised
     everywhere; a writer error on any process is kept until the final
@@ -339,6 +370,7 @@ def write_patches_collective(
     dist.run_on_root(prepare_cache_directory, cache, overwrite)
 
     writers: dict[int, PatchWriter] = {}
+    buffersize = DEFAULT_BUFFERSIZE if buffersize is None else buffersize
     local_error: BaseException | None = None
     num_patches = 0
 
@@ -352,7 +384,7 @@ def write_patches_collective(
                     continue
                 if pid not in writers:
                     writers[pid] = PatchWriter(
-                        cache / PATCH_NAME_TEMPLATE.format(pid), info
+                        cache / PATCH_NAME_TEMPLATE.format(pid), info, buffersize
                     )
                 writers[pid].process_chunk(part)
         except Exception as err:

@@ -206,3 +206,5 @@ class LazyCatalog(HandlesDataChunk):
             "open the cache with Catalog(cache_directory) to load it "
             "into memory"
         )
+
+    build_trees = get_tiles

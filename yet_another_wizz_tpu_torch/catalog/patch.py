@@ -36,7 +36,7 @@ __all__ = [
     "write_patch_data",
 ]
 
-BUFFERSIZE = 65_536
+DEFAULT_BUFFERSIZE = 65_536
 """Number of rows buffered by :class:`PatchWriter` before flushing."""
 
 
@@ -145,17 +145,24 @@ def read_patch_data(path: Path | str) -> tuple[DataChunkInfo, NDArray]:
     return info, raw.view(dtype)
 
 
-class PatchWriter:
-    """Buffered, append-mode writer for one patch's ``data.bin``."""
+class PatchWriter(HandlesDataChunk):
+    """Buffered, append-mode writer for one patch's ``data.bin``: it
+    flushes whenever its buffer holds ``buffersize`` rows or more."""
 
-    __slots__ = ("cache_path", "_chunk_info", "_buffer", "_opened")
+    __slots__ = ("cache_path", "buffersize", "_chunk_info", "_buffer", "_opened")
 
-    def __init__(self, cache_path: Path | str, chunk_info: DataChunkInfo) -> None:
+    def __init__(
+        self,
+        cache_path: Path | str,
+        chunk_info: DataChunkInfo,
+        buffersize: int = DEFAULT_BUFFERSIZE,
+    ) -> None:
         self.cache_path = Path(cache_path)
         if self.cache_path.exists():
             raise FileExistsError(f"directory already exists: {self.cache_path}")
         self.cache_path.mkdir(parents=True)
 
+        self.buffersize = int(buffersize)
         chunk_info = chunk_info.copy()
         chunk_info.has_patch_ids = False  # ids are implicit in the directory
         self._chunk_info = chunk_info
@@ -173,7 +180,7 @@ class PatchWriter:
     def process_chunk(self, chunk: NDArray) -> None:
         """Queue a chunk for writing; flushes when the buffer is full."""
         self._buffer.append(chunk)
-        if self.num_buffered >= BUFFERSIZE:
+        if self.num_buffered >= self.buffersize:
             self.flush()
 
     def flush(self) -> None:

@@ -11,10 +11,11 @@ binary-table reader is implemented here instead (2880-byte header blocks,
 BINTABLE extensions, big-endian numeric TFORM columns) — sufficient for the
 tabular catalogs this framework consumes.
 
-Ported from the JAX package's ``catalog/readers.py``, without its
-dataframe and random-generator readers, which nothing here uses.
-``pandas``, ``pyarrow`` and ``h5py`` are imported only inside the readers
-that need them, so FITS files ingest without any of them.
+Ported from the JAX package's ``catalog/readers.py``, with its
+dataframe (:class:`DataFrameReader`) and random-generator
+(:class:`RandomReader`) readers. ``pandas``, ``pyarrow`` and ``h5py`` are
+imported only inside the readers that need them, so FITS files and random
+generators ingest without any of them.
 """
 
 from __future__ import annotations
@@ -37,9 +38,11 @@ if TYPE_CHECKING:
 __all__ = [
     "CHUNKSIZE",
     "CsvReader",
+    "DataFrameReader",
     "FitsReader",
     "HDFReader",
     "ParquetReader",
+    "RandomReader",
     "new_filereader",
     "prefetch_chunks",
 ]
@@ -160,6 +163,54 @@ class BaseReader(ABC):
                 )
             )
         return np.concatenate(parts)
+
+
+class DataFrameReader(BaseReader):
+    """Chunked reader over an in-memory (pandas-like) dataframe: anything
+    with ``len``, ``.iloc`` row slices and columns by ``[name]``."""
+
+    def __init__(self, dataframe, **kwargs) -> None:
+        super().__init__(**kwargs)
+        self._frame = dataframe
+        self._num_records = len(dataframe)
+
+    def _load_range(self, start, stop, columns=None):
+        view = self._frame.iloc[start:stop]
+        return {
+            attr: np.asarray(view[name])
+            for attr, name in (columns or self.columns).items()
+            if name is not None
+        }
+
+
+class RandomReader(BaseReader):
+    """Chunked sampling of a random point generator (duck-typed: a callable
+    producing structured chunks, see :mod:`yet_another_wizz_tpu_torch.
+    randoms`). Coordinates are in radian (``degrees=False``); weights and
+    redshifts are carried where the generator draws them."""
+
+    def __init__(self, generator, num_randoms: int, **kwargs) -> None:
+        kwargs.setdefault("ra_name", "ra")
+        kwargs.setdefault("dec_name", "dec")
+        kwargs.setdefault("degrees", False)
+        super().__init__(**kwargs)
+        self._generator = generator
+        self._num_records = int(num_randoms)
+
+    def _load_range(self, start, stop, columns=None):
+        chunk = self._generator(stop - start)
+        raw = {"ra": chunk["ra"], "dec": chunk["dec"]}
+        for attr in ("weights", "redshifts"):
+            value = DataChunk.getattr(chunk, attr)
+            if value is not None:
+                raw[attr] = value
+        return raw
+
+    def _to_chunk(self, raw, columns=None):
+        raw = dict(raw)
+        return DataChunk.create(
+            raw.pop("ra"), raw.pop("dec"), degrees=False, **raw
+        )
 
 
 class CsvReader(BaseReader):

@@ -127,6 +127,14 @@ class HandlesDataChunk:
     def has_patch_ids(self) -> bool:
         return self._chunk_info.has_patch_ids
 
+    def copy_chunk_info(self, *, drop_patch_ids: bool = False) -> DataChunkInfo:
+        """Copy of the attribute description, optionally with the patch-id
+        flag cleared (reference: yaw/datachunk.py:154)."""
+        copy = self._chunk_info.copy()
+        if drop_patch_ids:
+            copy.has_patch_ids = False
+        return copy
+
 
 class DataChunk:
     """Factory and accessors for structured-array catalog chunks."""

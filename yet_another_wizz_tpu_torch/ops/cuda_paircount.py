@@ -98,6 +98,7 @@ from yet_another_wizz_tpu_torch.utils.misc import (
 
 if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.ops.linkage import TilePairs
+    from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 __all__ = [
     "SOURCE",
@@ -109,6 +110,7 @@ __all__ = [
     "flag_triage_cuda",
     "launch_counts",
     "paircount_partials",
+    "prepare_lanes",
     "reset_launch_counts",
     "segment_sum",
     "variant_name",
@@ -331,6 +333,16 @@ def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
     caps = chunk_caps(lanes)
     _caps[key] = (lanes._version, caps)
     return caps
+
+
+def prepare_lanes(tiles: TileSet, device: torch.device | str) -> torch.Tensor:
+    """Upload the lanes of ``tiles`` to the CUDA ``device``
+    (:meth:`~yet_another_wizz_tpu_torch.ops.tiles.TileSet.device_data`) and
+    derive their chunk caps (:func:`_device_caps`), so that the counts
+    reading them later find both in place; returns the lanes."""
+    lanes = tiles.device_data(device)
+    _device_caps(lanes)
+    return lanes
 
 
 def paircount_partials(
