@@ -166,7 +166,9 @@ from torch_proof_common import (  # noqa: E402
     EngineSpy,
     MemorySampler,
     host_memory,
+    host_spans,
 )
+from torch_proof_common import launches as counted_launches  # noqa: E402
 
 
 NUM_REFERENCE = 200_000
@@ -246,9 +248,19 @@ SURVEY_ORACLE_SLOTS = 48
 SURVEY_WARM_RUNS = 3
 SURVEY_PHASES = (
     "rows", "cols", "pairs", "queue", "drain_wait", "drain_fetch",
-    "drain_scatter", "upload", "upload_bytes", "store_hits", "store_misses",
-    "num_block_pairs",
+    "drain_scatter",
 )
+"""The blocked loop's phases in a survey run's statistics, in seconds from
+its spans (``blocked.<phase>``)."""
+SURVEY_COUNTERS = {
+    "upload": "blocked.upload_s",
+    "upload_bytes": "blocked.upload_bytes",
+    "store_hits": "cache.hit.store",
+    "store_misses": "cache.miss.store",
+    "num_block_pairs": "blocked.block_pairs",
+    "candidate_pairs": "engine.candidate_pairs",
+}
+"""A survey run's counters, by the program's counter each reads."""
 AUDIT_RTOL = 1e-6
 """Audited counts against the float64 oracle, per slot and element: with
 the audit, no pair within float32 resolution of an edge is left in the
@@ -1253,14 +1265,15 @@ def same_flagged_slots(stats, other) -> bool:
     )
 
 
-def flag_pass_bound(stats, num_edges: int, tile_size: int) -> tuple[float, str]:
-    """The least milliseconds of one flag pass (K2.1): every candidate pair
-    of its list at 16 + 3E float32 operations (the compensated chord, the
-    validity test, and a subtraction, absolute value and compare per edge),
-    against its bytes (the tile pairs' lanes read once, one flag written)."""
-    candidates = stats["tile_pairs"] * tile_size**2
-    lanes = 2 * stats["tile_pairs"] * 8 * tile_size * 4
-    return bound(candidates * (16 + 3 * num_edges), lanes + stats["tile_pairs"])
+def flag_pass_bound(tile_pairs: int, num_edges: int, tile_size: int) -> tuple[float, str]:
+    """The least milliseconds of one flag pass (K2.1) over ``tile_pairs``:
+    every candidate pair of its list at 16 + 3E float32 operations (the
+    compensated chord, the validity test, and a subtraction, absolute value
+    and compare per edge), against its bytes (the tile pairs' lanes read
+    once, one flag written)."""
+    candidates = tile_pairs * tile_size**2
+    lanes = 2 * tile_pairs * 8 * tile_size * 4
+    return bound(candidates * (16 + 3 * num_edges), lanes + tile_pairs)
 
 
 def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
@@ -1300,25 +1313,20 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
     check(len(paircount.AUDIT_STATS) == 2, "audit: not one audit per count")
     first = list(paircount.AUDIT_STATS)
     paircount.reset_audit_stats()
-    t0 = time.perf_counter()
-    (again,) = audited()
-    warm = time.perf_counter() - t0
+    # warm runs under a profiler of the host: the flag passes and recounts
+    # are its spans audit.flag and audit.recount
+    (again,), warm, warm_spans = host_spans(audited)
     rerun_stats = list(paircount.AUDIT_STATS)
     paircount.reset_audit_stats()
     with plain_flag_pass():
-        t0 = time.perf_counter()
-        audited()
-        plain_warm = time.perf_counter() - t0
+        _, plain_warm, plain_spans = host_spans(audited)
     plain_stats = list(paircount.AUDIT_STATS)
     check(same_flagged_slots(first, plain_stats),
           "audit: the plain flag pass flags other slots than the kernel")
     links = PatchLinkage.from_catalogs(config, *catalogs)
     num_edges = links.edges.chord2_table.shape[1]
-    for (name, stats), rerun, plain_rerun in zip(
-        zip(("DD", "RD"), first), rerun_stats, plain_stats
-    ):
+    for (name, stats), rerun in zip(zip(("DD", "RD"), first), rerun_stats):
         oracle, pairs = oracles[name]
-        check(stats["tile_pairs"] == pairs.num_pairs, f"audit {name}: another list")
         flagged = stats["flagged_slots"]
         check(np.array_equal(rerun["flagged_slots"], flagged),
               f"audit {name}: the second run flagged other slots")
@@ -1329,15 +1337,14 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         flagged_err = slot_relative_error(ours[flagged], expected[flagged])
         slot_err = slot_relative_error(ours, expected)
         plain_err = slot_relative_error(plain, expected)
-        bound_ms, bound_by = flag_pass_bound(stats, num_edges, DEFAULT_TILE_SIZE)
+        bound_ms, bound_by = flag_pass_bound(
+            pairs.num_pairs, num_edges, DEFAULT_TILE_SIZE
+        )
         log(f"[{card}] audit {name}: {len(flagged)} of {pairs.num_slots} slots "
-            f"flagged ({stats['tile_pairs']} tile pairs; the plain flag pass's "
-            f"rerun the same); flag pass (K2.1 kernel) {stats['flag_ms']:.3f} ms "
-            f"on the card ({rerun['flag_ms']:.3f} ms warm; plain flag pass "
-            f"{plain_rerun['flag_ms']:.1f} ms), every-pair bound "
-            f"{bound_ms:.3f} ms ({bound_by}); float64 recount "
-            f"{stats['recount_seconds']:.2f} s ({rerun['recount_seconds']:.2f} s "
-            f"warm) on {stats['recount_workers']} threads; flagged slots vs "
+            f"flagged ({pairs.num_pairs} tile pairs; the plain flag pass's "
+            f"rerun the same); flag pass every-pair bound "
+            f"{bound_ms:.3f} ms ({bound_by}); float64 recount on "
+            f"{stats['recount_workers']} threads; flagged slots vs "
             f"oracle max rel {flagged_err:.3e}; unflagged slots bitwise the "
             f"unaudited counts; per-slot max rel vs oracle {slot_err:.3e} "
             f"(unaudited {plain_err:.3e})")
@@ -1348,9 +1355,11 @@ def audit_checks(card, catalogs, config, wsp, oracles, launches_total) -> None:
         check(slot_err <= AUDIT_RTOL, f"audit {name}: per-slot counts off the oracle")
     check(same_counts(again, corr), "audit: the warm run differs from the first")
     log(f"[{card}] audit (crosscorrelate + audit, DD + RD): warm {warm:.2f} s "
-        f"(flag passes {sum(r['flag_ms'] for r in rerun_stats):.3f} ms, "
-        f"recounts {sum(r['recount_seconds'] for r in rerun_stats):.2f} s); "
-        f"with the plain flag pass {plain_warm:.2f} s")
+        f"under a host profiler (flag passes "
+        f"{warm_spans['audit.flag'][1] * 1e3:.3f} ms of host, recounts "
+        f"{warm_spans['audit.recount'][1]:.2f} s); with the plain flag pass "
+        f"{plain_warm:.2f} s (flag passes "
+        f"{plain_spans['audit.flag'][1] * 1e3:.1f} ms)")
 
 
 def audit_flip(card, launches_total) -> None:
@@ -1458,14 +1467,14 @@ def audit_blocked(card, config, launches_total) -> None:
     kernel_stats = list(paircount.AUDIT_STATS)
     flagged_blocked = flagged()
     paircount.reset_audit_stats()
-    t0 = time.perf_counter()
+    _, _, kernel_spans = host_spans(blocked_run)
+    paircount.reset_audit_stats()
     with plain_flag_pass():
-        blocked_run()
-    t_plain = time.perf_counter() - t0
+        _, t_plain, plain_spans = host_spans(blocked_run)
     check(same_flagged_slots(kernel_stats, paircount.AUDIT_STATS),
           "audit blocked: the plain flag pass flags other slots than the kernel")
-    flag_ms = sum(stats["flag_ms"] for stats in kernel_stats)
-    plain_ms = sum(stats["flag_ms"] for stats in paircount.AUDIT_STATS)
+    flag_ms = kernel_spans["audit.flag"][1] * 1e3
+    plain_ms = plain_spans["audit.flag"][1] * 1e3
     errs = []
     for name in ("dd", "dr", "rr"):
         ours = getattr(blocked, name).counts.counts
@@ -1475,9 +1484,10 @@ def audit_blocked(card, config, launches_total) -> None:
         f"{NUM_RANDOMS // AUDIT_CUT} points, {NUM_PATCHES} patches): in memory "
         f"{t_memory:.2f} s ({flagged_memory} slots recounted over DD, DR, RR), "
         f"blocked {t_blocked:.2f} s ({flagged_blocked} block-pair slots "
-        f"recounted; {len(kernel_stats)} flag passes, {flag_ms:.3f} ms of flag "
-        f"kernel; with the plain flag pass {t_plain:.2f} s, {plain_ms:.1f} ms, "
-        "the same slots flagged); blocked vs in-memory max|err|/max DD, DR, RR "
+        f"recounted; {len(kernel_stats)} flag passes, {flag_ms:.3f} ms of host "
+        f"in them (span audit.flag, a rerun under a host profiler); with the "
+        f"plain flag pass {t_plain:.2f} s, {plain_ms:.1f} ms, the same slots "
+        "flagged); blocked vs in-memory max|err|/max DD, DR, RR "
         + ", ".join(f"{e:.3e}" for e in errs))
     check(flagged_memory > 0, "audit blocked: no slot was flagged")
     check(max(errs) <= RTOL, "audit blocked: off the in-memory audited counts")
@@ -1491,14 +1501,14 @@ def run_path(name: str, fn, expected: dict, launches_total: dict):
     that each expected variant launched at least as often as given."""
     import torch
 
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.utils import tracing
 
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    launches = counted_launches()
     log(f"{name} path (cold) {seconds:.2f} s, kernel launches {launches}")
     for variant, count in expected.items():
         check(launches.get(variant, 0) >= count,
@@ -1746,6 +1756,7 @@ def mp_child(root: str) -> None:
         crosscorrelate,
     )
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.utils import tracing
     from yet_another_wizz_tpu_torch.parallel import default_mesh, distributed
 
     t_start = time.perf_counter()
@@ -1767,7 +1778,7 @@ def mp_child(root: str) -> None:
     for layout in LAYOUTS:
         times = []
         for _ in range(2):
-            cuda_paircount.reset_launch_counts()
+            tracing.reset()
             t0 = time.perf_counter()
             (corr,) = crosscorrelate(
                 config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
@@ -1784,7 +1795,7 @@ def mp_child(root: str) -> None:
                       f"{np.abs(ours - theirs).max():.3e})")
         steps = plan_steps(links, catalogs, ("cross DD", "cross RD"), layout,
                            mesh.size, mesh.local_shards())
-        launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+        launches = counted_launches()
         check(launches.get("paircount_partials") == steps
               == launches.get("paircount_segment_sum"),
               f"rank {rank} {layout}: launches {launches}, expected {steps}")
@@ -1928,30 +1939,49 @@ def write_survey_caches(root: str) -> None:
 
 
 def survey_run(config, catalogs, mesh=None, data_sharding="replicated",
-               audit=False, **budgets):
+               audit=False, spans=False, **budgets):
     """One survey measurement (blocked ``crosscorrelate`` DD + RD and the
     jackknife n(z)) in a tile cache of its own, with the ``budgets`` of
     ``measurement_tile_cache``, on one device or sharded over ``mesh``,
-    audited with ``audit``: ``(w_sp, n(z), stats)``, with the run's phase
-    totals and the cache's statistics in ``stats``."""
+    audited with ``audit``: ``(w_sp, n(z), stats)``, with the run's
+    counters and the cache's statistics in ``stats``. With ``spans`` the
+    run is under a profiler of the host (which slows it), and ``stats``
+    also holds its phase totals from the spans and, audited, the flag
+    passes' and recounts' host seconds (``audit_flag``,
+    ``audit_recount``)."""
     import torch
 
     from yet_another_wizz_tpu_torch.correlation import blocked
     from yet_another_wizz_tpu_torch.correlation.measurements import crosscorrelate
     from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+    from yet_another_wizz_tpu_torch.utils import tracing
 
-    blocked.reset_phase_totals()
-    with blocked.measurement_tile_cache(**budgets) as cache:
+    def run():
         (wsp,) = crosscorrelate(
             config, catalogs[0], catalogs[1], ref_rand=catalogs[2],
             max_resident_patches=SURVEY_RESIDENT, device="cuda", mesh=mesh,
             data_sharding=data_sharding, audit=audit,
             max_workers=len(os.sched_getaffinity(0)) if audit else None,
         )
-        nz = RedshiftData.from_corrfuncs(wsp)
+        return wsp, RedshiftData.from_corrfuncs(wsp)
+
+    tracing.reset()
+    found = {}
+    with blocked.measurement_tile_cache(**budgets) as cache:
+        if spans:
+            (wsp, nz), _, found = host_spans(run)
+        else:
+            wsp, nz = run()
     torch.cuda.synchronize()
-    stats = {key: blocked.PHASE_TOTALS.get(key, 0) for key in SURVEY_PHASES}
-    stats["candidate_pairs"] = blocked.PHASE_TOTALS["candidate_pairs"]
+    stats = {}
+    if spans:
+        for key in SURVEY_PHASES:
+            stats[key] = found.get(f"blocked.{key}", (0, 0.0))[1]
+        if audit:
+            for key in ("flag", "recount"):
+                stats[f"audit_{key}"] = found.get(f"audit.{key}", (0, 0.0))[1]
+    for key, name in SURVEY_COUNTERS.items():
+        stats[key] = tracing.counters.get(name, 0)
     for key in ("hits", "misses", "evictions", "spills", "spill_loads"):
         stats[f"cache_{key}"] = getattr(cache, key)
     return wsp, nz, stats
@@ -2144,7 +2174,7 @@ def audit_survey(card) -> None:
         with flag_spy() as plain_calls:
             (audited, nz, stats), launches = run_path(
                 "survey audit (blocked crosscorrelate, audit=True)",
-                lambda: survey_run(config, catalogs, audit=True),
+                lambda: survey_run(config, catalogs, audit=True, spans=True),
                 {"paircount_partials": 1, "paircount_segment_sum": 1,
                  **dict.fromkeys(FLAG_KERNELS, 1)},
                 {},
@@ -2156,13 +2186,12 @@ def audit_survey(card) -> None:
               "survey audit: not one flag pass per block pair")
         check_nz(nz, "survey audit", SURVEY_PATCHES)
         log(f"[{card}] survey audit ({stats['num_block_pairs']} block pairs, "
-            f"{sum(a['tile_pairs'] for a in audits)} tile pairs): warm unaudited "
-            f"{t_plain:.2f} s, audited {t_audit:.2f} s; {len(audits)} flag "
-            f"passes, {sum(a['flag_ms'] for a in audits):.3f} ms of flag kernel "
-            f"({sum(a['flag_seconds'] for a in audits):.3f} s of host); "
-            f"{sum(len(a['flagged_slots']) for a in audits)} of "
-            f"{sum(a['slots'] for a in audits)} block-pair slots recounted in "
-            f"{sum(a['recount_seconds'] for a in audits):.2f} s of float64 on "
+            f"{stats['candidate_pairs']} candidate pairs): warm unaudited "
+            f"{t_plain:.2f} s, audited {t_audit:.2f} s under a host profiler; "
+            f"{len(audits)} flag "
+            f"passes, {stats['audit_flag']:.3f} s of host (span audit.flag); "
+            f"{sum(len(a['flagged_slots']) for a in audits)} block-pair slots "
+            f"recounted in {stats['audit_recount']:.2f} s of float64 on "
             f"{max(a['recount_workers'] for a in audits)} threads")
         links = PatchLinkage.from_catalogs(config, *catalogs)
         for name, count in (("DD", "cross DD"), ("RD", "cross RD")):
@@ -2322,13 +2351,19 @@ def survey_checks(card, config, launches_total, root) -> None:
             engine(*args, **kwargs)
 
     engine_ms = cuda_ms(replay, 3)
-    host_s = sum(stats[key] for key in ("rows", "cols", "pairs", "queue"))
-    log(f"[{card}] survey engine kernels {engine_ms:.3f} ms over {len(calls)} block "
-        f"pairs (replayed, CUDA events) of the {warm * 1e3:.1f} ms warm run: idle "
-        f"share ~{1 - engine_ms / (warm * 1e3):.3f}; last warm run's drain wait "
-        f"{stats['drain_wait'] * 1e3:.1f} ms, queue {stats['queue'] * 1e3:.1f} ms, "
-        f"host phases (rows+cols+pairs+queue) {host_s * 1e3:.1f} ms")
     del calls
+    t0 = time.perf_counter()
+    _, _, phased = survey_run(config, catalogs, spans=True)
+    seconds = time.perf_counter() - t0
+    host_s = sum(phased[key] for key in ("rows", "cols", "pairs", "queue"))
+    log(f"[{card}] survey engine kernels {engine_ms:.3f} ms over "
+        f"{phased['num_block_pairs']} block pairs (replayed, CUDA events) of "
+        f"the {warm * 1e3:.1f} ms warm run: idle share "
+        f"~{1 - engine_ms / (warm * 1e3):.3f}; a warm run under a host "
+        f"profiler ({seconds:.3f} s): drain wait "
+        f"{phased['drain_wait'] * 1e3:.1f} ms, queue {phased['queue'] * 1e3:.1f} ms, "
+        f"host phases (rows+cols+pairs+queue) {host_s * 1e3:.1f} ms; "
+        f"{format_stats(phased)}")
 
     log("-- survey: a run without the tile store (YAWT_TILE_STORE=0): every block packed and uploaded")
     os.environ["YAWT_TILE_STORE"] = "0"
@@ -2497,7 +2532,7 @@ def cli_run(label: str, argv: list, *, tile_caches: list | None = None) -> dict:
 
     from yet_another_wizz_tpu_torch.cli.commandline import main as cli_main
     from yet_another_wizz_tpu_torch.correlation import blocked
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.utils import tracing
 
     original = blocked.measurement_tile_cache
 
@@ -2522,12 +2557,12 @@ def cli_run(label: str, argv: list, *, tile_caches: list | None = None) -> dict:
     try:
         with EngineSpy() as spy, MemorySampler() as memory:
             base = host_memory()["VmRSS"]
-            cuda_paircount.reset_launch_counts()
+            tracing.reset()
             t0 = time.perf_counter()
             code = cli_main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+            launches = counted_launches()
     finally:
         blocked.measurement_tile_cache = original
     check(code == 0, f"cli {label}: the command line exited with {code}")
@@ -2959,7 +2994,7 @@ def surface_warm(card, config, catalogs, wsp, headline_warm, launches_total) -> 
         PatchLinkage,
         crosscorrelate,
     )
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.utils import tracing
     from yet_another_wizz_tpu_torch.redshifts import RedshiftData
 
     reference, unknown, randoms = catalogs
@@ -2998,12 +3033,12 @@ def surface_warm(card, config, catalogs, wsp, headline_warm, launches_total) -> 
         for name, catalog in zip(CATALOG_NAMES, catalogs)
     }
 
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     with warm_spy() as built, EngineSpy() as engine:
         t0 = time.perf_counter()
         corr, nz = measure()
         first = time.perf_counter() - t0
-    launches = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
+    launches = counted_launches()
     log(f"surface: build_trees ({max_angle:.6e} rad, layouts {layouts}), then "
         f"crosscorrelate + n(z): built and uploaded in the measurement {built}, "
         f"launches {launches}, kernel devices {sorted(engine.kernel_devices)}, "

@@ -220,19 +220,28 @@ def blocked_catalogs() -> tuple:
 def blocked_audit(run, catalogs, lists: list | None = None) -> tuple[list, float]:
     """The blocked audit of ``chip_smoke.py::audit_blocked`` on
     ``catalogs`` with the flag pass through ``run``: its audit records and
-    their flag milliseconds on the card. With ``lists``, the flag passes'
-    inputs are appended to it."""
+    the flag passes' milliseconds on the card (CUDA events around each
+    pass's launches). With ``lists``, the flag passes' inputs are appended
+    to it."""
+    import torch
+
     from yet_another_wizz_tpu_torch.config import Configuration
     from yet_another_wizz_tpu_torch.correlation.measurements import autocorrelate
     from yet_another_wizz_tpu_torch.ops import paircount
 
     dispatch = paircount.boundary_flags
+    events = []
 
     def flags(lanes1, lanes2, tile1, tile2, table, band, *, cols_binned=False,
               chunk_size=None):
         if lists is not None:
             lists.append((lanes1, lanes2, tile1, tile2, table, band, cols_binned))
-        return run(lanes1, lanes2, tile1, tile2, table, band, cols_binned)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        flagged = run(lanes1, lanes2, tile1, tile2, table, band, cols_binned)
+        stop.record()
+        events.append((start, stop))
+        return flagged
 
     paircount.boundary_flags = flags
     paircount.reset_audit_stats()
@@ -244,8 +253,9 @@ def blocked_audit(run, catalogs, lists: list | None = None) -> tuple[list, float
         )
     finally:
         paircount.boundary_flags = dispatch
+    torch.cuda.synchronize()
     stats = list(paircount.AUDIT_STATS)
-    return stats, sum(record["flag_ms"] for record in stats)
+    return stats, sum(start.elapsed_time(stop) for start, stop in events)
 
 
 def time_flags(card: str, runs: dict) -> None:

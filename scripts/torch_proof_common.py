@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 
@@ -162,11 +163,33 @@ class EngineSpy:
             setattr(module, name, original)
 
 
-def launches() -> dict:
-    """The kernel launches counted since the last reset, by variant."""
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount
+def host_spans(run) -> tuple:
+    """``(result, seconds, spans)``: ``run()`` under a profiler of the host,
+    its host seconds (the profiler's cost included) and the port's span
+    totals in it (``{name: (count, seconds)}``, names without ``yawt/``)."""
+    import torch
 
-    return {key: value for key, value in cuda_paircount.launch_counts.items() if value}
+    from yet_another_wizz_tpu_torch.utils import tracing
+
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]
+    ) as profiler:
+        t0 = time.perf_counter()
+        result = run()
+        seconds = time.perf_counter() - t0
+    return result, seconds, tracing.span_totals(profiler)
+
+
+def launches() -> dict:
+    """The kernel launches counted since the counters' last reset
+    (``tracing.reset()``), by variant."""
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import LAUNCHES
+    from yet_another_wizz_tpu_torch.utils import tracing
+
+    return {
+        key[len(LAUNCHES):]: value for key, value in tracing.snapshot().items()
+        if key.startswith(LAUNCHES) and value
+    }
 
 
 def warm_up(device: str) -> None:

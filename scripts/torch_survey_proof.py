@@ -15,10 +15,12 @@ HEALPix mask at nside 128, seed 199), 128 kmeans patches, 24 resident:
 2. ``measure``, in a subprocess of its own (its host memory is the
    measurement's): the three caches open as ``LazyCatalog``; the blocked
    ``crosscorrelate(max_resident_patches=24)`` + ``RedshiftData.
-   from_corrfuncs`` run once cold and once warm, each with its phase
-   totals; the warm run's kernel launches, peak device memory and host
-   memory growth over a baseline taken after CUDA is initialised and the
-   catalogs are open; the engine's kernel milliseconds, from CUDA events
+   from_corrfuncs`` run once cold, under a profiler of the host whose
+   spans give the blocked loop's phase totals (its wall time and host
+   memory include the profiler's), and once warm without it, then once
+   more warm under it for the warm phases; the warm run's kernel launches,
+   peak device memory and host memory growth over a baseline taken after
+   CUDA is initialised and the catalogs are open; the engine's kernel milliseconds, from CUDA events
    over the warm run's block pairs replayed; the packed-tile store's bytes
    and reads.
 3. ``crosscheck``: the downsample through the port's in-memory engine and
@@ -68,6 +70,7 @@ from torch_proof_common import (  # noqa: E402
     MemorySampler,
     card,
     host_memory,
+    host_spans,
     launches,
     log,
     machine,
@@ -302,8 +305,51 @@ def store_calibration(workdir: Path) -> dict:
 
 
 PHASES = ("rows", "cols", "pairs", "queue", "drain", "preamble", "teardown")
-COUNTERS = ("num_block_pairs", "candidate_pairs", "store_hits", "store_misses",
-            "upload_bytes")
+"""The phases that together make the blocked loop's time."""
+DRAIN = ("drain_wait", "drain_fetch", "drain_scatter")
+"""The parts of ``drain``."""
+COUNTERS = {
+    "num_block_pairs": "blocked.block_pairs",
+    "candidate_pairs": "engine.candidate_pairs",
+    "store_hits": "cache.hit.store",
+    "store_misses": "cache.miss.store",
+    "upload_bytes": "blocked.upload_bytes",
+}
+"""The record's counters, by the program's counter each reads."""
+
+
+def traced(run, profile: bool = True):
+    """``run()`` from counters set to zero: ``(result, seconds, phases,
+    counters)``, the counters by the record's names. With ``profile`` the
+    run is under a profiler of the host (:func:`host_spans`, which slows it
+    and holds its events in host memory) and ``phases`` are its seconds
+    from the blocked loop's spans (``blocked.<phase>``; ``drain`` is the
+    sum of its parts, ``upload`` the lane copies' seconds on the card);
+    else ``phases`` is None."""
+    from yet_another_wizz_tpu_torch.utils import tracing
+
+    tracing.reset()
+    if not profile:
+        t0 = time.perf_counter()
+        result = run()
+        seconds = time.perf_counter() - t0
+        return result, seconds, None, _counters(tracing)
+    result, seconds, spans = host_spans(run)
+    phases = {
+        key: spans.get(f"blocked.{key}", (0, 0.0))[1]
+        for key in (*PHASES, *DRAIN) if key != "drain"
+    }
+    phases["drain"] = sum(phases[key] for key in DRAIN)
+    phases["upload"] = tracing.counters.get("blocked.upload_s", 0.0)
+    phases = {key: round(value, 3) for key, value in phases.items()}
+    phases["unattributed"] = round(
+        seconds - sum(phases[key] for key in PHASES), 3
+    )
+    return result, seconds, phases, _counters(tracing)
+
+
+def _counters(tracing) -> dict:
+    return {key: tracing.counters.get(name, 0) for key, name in COUNTERS.items()}
 
 
 def measure(workdir: Path, args) -> dict:
@@ -340,50 +386,29 @@ def measure(workdir: Path, args) -> dict:
             torch.cuda.synchronize()
         return w_sp, nz
 
-    def phases() -> dict:
-        return {
-            key: round(value, 3) for key, value in blocked.PHASE_TOTALS.items()
-            if key not in COUNTERS
-        }
-
     spy = EngineSpy()
     with spy:
         # cold: kernels' first launches, the first packing with the tile
         # store's writes; the remainder beyond the blocked loop's phases
-        # is the measurement functions' own host work
-        blocked.reset_phase_totals()
-        cuda_paircount.reset_launch_counts()
+        # is the measurement functions' own host work. Its phases need the
+        # profiler, so its wall time and host memory include the profiler's
         with MemorySampler() as cold_memory:
-            t0 = time.perf_counter()
-            run()
-            t_cold = time.perf_counter() - t0
-        cold_phases = phases()
-        cold_phases["unattributed"] = round(
-            t_cold - sum(cold_phases.get(key, 0.0) for key in PHASES), 3
-        )
-        cold_counters = {k: blocked.PHASE_TOTALS.get(k, 0) for k in COUNTERS}
+            _, t_cold, cold_phases, cold_counters = traced(run)
         cold_launches = launches()
 
         gc.collect()
-        blocked.reset_phase_totals()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        cuda_paircount.reset_launch_counts()
         # the measurement's own tile cache, opened here to read what it
         # holds on the host: the resident blocks' lanes
         with MemorySampler() as warm_memory, blocked.measurement_tile_cache() as cache:
-            t0 = time.perf_counter()
-            w_sp, nz = run()
-            t_warm = time.perf_counter() - t0
+            (w_sp, nz), t_warm, _, counters = traced(run, profile=False)
             tile_cache = {key: getattr(cache, key) for key in (
                 "hits", "misses", "evictions", "spills", "spill_loads")}
             tile_cache["resident_bytes"] = cache._resident_used
         warm_launches = launches()
-        warm_phases = phases()
-        warm_phases["unattributed"] = round(
-            t_warm - sum(warm_phases.get(key, 0.0) for key in PHASES), 3
-        )
-        counters = {k: blocked.PHASE_TOTALS.get(k, 0) for k in COUNTERS}
+        # the warm phases: a further warm run under the profiler
+        _, _, warm_phases, _ = traced(run)
         device_memory, pinned = {}, None
         if on_card:
             device_memory = {
@@ -429,7 +454,8 @@ def measure(workdir: Path, args) -> dict:
         ),
         "host_memory": {
             "kind": "VmRSS, sampled every 20 ms; baseline after CUDA "
-                    "initialisation, a warm-up and opening the catalogs",
+                    "initialisation, a warm-up and opening the catalogs; the "
+                    "cold run is under a host profiler, the warm run is not",
             "cold": memory_growth(base, cold_memory.peak, rows),
             "warm": memory_growth(base, warm_memory.peak, rows),
         },
@@ -488,13 +514,13 @@ def crosscheck(workdir: Path, args) -> dict:
         crosscorrelate,
     )
     from yet_another_wizz_tpu_torch.ops.cpu_oracle import count_pairs_oracle_multiprocess
-    from yet_another_wizz_tpu_torch.ops.cuda_paircount import reset_launch_counts
     from yet_another_wizz_tpu_torch.ops.linkage import build_tile_pairs
     from yet_another_wizz_tpu_torch.ops.paircount import (
         _unpack_tileset,
         count_pairs_tiles,
     )
     from yet_another_wizz_tpu_torch.redshifts import RedshiftData
+    from yet_another_wizz_tpu_torch.utils import tracing
 
     config = configuration()
     data = np.load(workdir / "downsample.npz")
@@ -510,7 +536,7 @@ def crosscheck(workdir: Path, args) -> dict:
     links = PatchLinkage.from_catalogs(config, *catalogs.values())
     binning = config.binning.binning
     max_rel_err, t_oracle = 0.0, 0.0
-    reset_launch_counts()
+    tracing.reset()
     with EngineSpy() as spy:
         for cat1, cat2 in ((catalogs["reference"], catalogs["unknown"]),
                            (catalogs["randoms"], catalogs["unknown"])):

@@ -255,6 +255,7 @@ def pipeline_child(project: str, setup: str, stats: str, device: str) -> int:
     from yet_another_wizz_tpu_torch.cli.commandline import main as cli_main
     from yet_another_wizz_tpu_torch.correlation import blocked
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
+    from yet_another_wizz_tpu_torch.utils import tracing
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -282,7 +283,7 @@ def pipeline_child(project: str, setup: str, stats: str, device: str) -> int:
     blocked.measurement_tile_cache = recording
     try:
         with EngineSpy() as spy, MemorySampler() as memory:
-            cuda_paircount.reset_launch_counts()
+            tracing.reset()
             t0 = time.perf_counter()
             code = cli_main([project, setup, "--device", device, "--quiet"])
             if on_card:

@@ -32,6 +32,7 @@ from yet_another_wizz_tpu_torch.correlation.measurements import (
     crosscorrelate_scalar,
 )
 from yet_another_wizz_tpu_torch.examples import generate_mock_data
+from yet_another_wizz_tpu_torch.utils import tracing
 
 SIZES = dict(num_reference=4000, num_unknown=6000, num_randoms=9000)
 SEED = 21
@@ -279,16 +280,23 @@ def test_binding_resident_budget_equals_default(catalogs, config):
 
 
 def test_prefetch_depth_and_phase_totals(catalogs, config, cross_in_memory, monkeypatch):
-    blocked.reset_phase_totals()
+    """The blocked loop's phases are spans and its statistics counters."""
+    tracing.reset()
     monkeypatch.setenv("YAWT_PREFETCH_BLOCKS", "3")
-    deep = cross(config, catalogs, max_resident_patches=4)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]
+    ) as profiler:
+        deep = cross(config, catalogs, max_resident_patches=4)
     assert_corrfunc_close(deep, cross_in_memory, ["dd", "rd"])
-    totals = blocked.PHASE_TOTALS
-    assert totals["num_block_pairs"] > 0 and totals["candidate_pairs"] > 0
-    for key in ("rows", "cols", "pairs", "queue", "drain", "drain_wait",
-                "drain_fetch", "drain_scatter", "upload"):
-        assert totals[key] >= 0.0
-    assert totals["upload_bytes"] == 0  # nothing crosses to a CPU device
+    totals = tracing.counters
+    assert totals["blocked.block_pairs"] > 0 and totals["engine.candidate_pairs"] > 0
+    phases = tracing.span_totals(profiler)
+    for key in ("rows", "cols", "pairs", "queue", "drain_wait", "drain_fetch",
+                "drain_scatter", "preamble", "teardown"):
+        assert phases[f"blocked.{key}"][1] >= 0.0
+    # per block pair that runs, its count and its scatter are queued
+    assert phases["blocked.queue"][0] == 2 * totals["blocked.block_pairs"]
+    assert "blocked.upload_bytes" not in totals  # nothing crosses to a CPU device
 
 
 def test_scatter_block_scales_equals_jax():

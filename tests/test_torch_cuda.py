@@ -33,6 +33,8 @@ After ``Catalog.build_trees`` on the card, a measurement uploads no lanes,
 derives no chunk caps and builds no tile set.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -52,6 +54,7 @@ from yet_another_wizz_tpu_torch.ops.paircount import (
 )
 from yet_another_wizz_tpu_torch.ops.thresholds import build_angular_edges
 from yet_another_wizz_tpu_torch.ops.tiles import build_tile_set
+from yet_another_wizz_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -62,6 +65,16 @@ def device():
         pytest.skip("needs a CUDA device")
     cuda_paircount.build()
     return torch.device("cuda")
+
+
+def launched() -> collections.Counter:
+    """The kernel launches counted since the counters' last reset, by
+    variant (0 for a variant that did not launch)."""
+    prefix = cuda_paircount.LAUNCHES
+    return collections.Counter({
+        name[len(prefix):]: n for name, n in tracing.counters.items()
+        if name.startswith(prefix)
+    })
 
 
 def cap_catalog(rng, n, num_bins, cap_deg=20.0):
@@ -148,12 +161,12 @@ def test_empty_slots_are_zero_and_launches_counted(device):
         tile1=pairs.tile1, tile2=pairs.tile2, slot=pairs.slot,
         slot_patches=np.concatenate([pairs.slot_patches, extra]),
     )
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     counts = count_pairs_tiles(
         tiles1, tiles2, crafted, table, backend="cuda", device=device
     )
-    launched = {k: v for k, v in cuda_paircount.launch_counts.items() if v}
-    assert launched == {"paircount_partials": 1, "paircount_segment_sum": 1}
+    counted = launched()
+    assert counted == {"paircount_partials": 1, "paircount_segment_sum": 1}
     assert np.all(counts[pairs.num_slots:] == 0.0)
     plain = count_pairs_tiles(
         tiles1, tiles2, pairs, table, backend="torch", device=device
@@ -233,7 +246,7 @@ def test_variants_match_plain_versions(device, variant, cols_binned):
     tile2 = torch.from_numpy(pairs.tile2[k]).to(device)
     kwargs = dict(cols_binned=cols_binned, direct=direct)
 
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     first = cuda_paircount.paircount_partials(
         lanes1, lanes2, tile1, tile2, table_dev, **kwargs
     )
@@ -247,7 +260,7 @@ def test_variants_match_plain_versions(device, variant, cols_binned):
     assert torch.equal(first, second)
     name = cuda_paircount.variant_name(cols_binned, direct)
     launches = -(-first.shape[2] // cuda_paircount.MAX_EDGES_PER_LAUNCH)
-    assert cuda_paircount.launch_counts[name] == 2 * launches
+    assert launched()[name] == 2 * launches
     assert plain.abs().max() > 0 and (plain < 0).any()  # signed weights
     assert_close(first, plain, rtol=1e-6 if direct is None else 1e-5)
 
@@ -290,12 +303,12 @@ def test_segment_sum_matches_plain_version(device, runs, width):
     partial = torch.rand(
         (len(slot), 1, width), generator=gen, device=device
     ) - 0.25
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     first = cuda_paircount.segment_sum(partial, slot, offsets, num_slots)
     second = cuda_paircount.segment_sum(partial, slot, offsets, num_slots)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
-    assert cuda_paircount.launch_counts["paircount_segment_sum"] == 2
+    assert launched()["paircount_segment_sum"] == 2
     # against the plain version in float64: the kernel sums in another
     # order than list order, and over runs this long two float32 orders
     # differ by more than the tolerance
@@ -413,7 +426,6 @@ def test_blocked_path_matches_in_memory_on_the_card(device, monkeypatch, shape):
     deterministic, and equals its host-scatter mode."""
     from yet_another_wizz_tpu_torch.catalog import Catalog
     from yet_another_wizz_tpu_torch.config import Configuration
-    from yet_another_wizz_tpu_torch.correlation import blocked
     from yet_another_wizz_tpu_torch.correlation.measurements import (
         autocorrelate,
         crosscorrelate,
@@ -449,9 +461,9 @@ def test_blocked_path_matches_in_memory_on_the_card(device, monkeypatch, shape):
             return autocorrelate(config, reference, randoms, device=device, **kwargs)[0]
 
     full = measure()
-    blocked.reset_phase_totals()
+    tracing.reset()
     first, second = measure(max_resident_patches=4), measure(max_resident_patches=4)
-    assert blocked.PHASE_TOTALS["upload_bytes"] > 0
+    assert tracing.counters["blocked.upload_bytes"] > 0
     monkeypatch.setenv("YAWT_DEVICE_ACCUMULATE", "0")
     host_mode = measure(max_resident_patches=4)
     for name in names:
@@ -489,9 +501,9 @@ def test_flag_pass_on_the_card_equals_the_cpu(device):
         index1.int().to(device), index2.int().to(device),
         *(a.to(device) for a in args),
     )
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     on_card = boundary_flags(*card_args)
-    assert cuda_paircount.launch_counts["boundary_flags"] == 1
+    assert launched()["boundary_flags"] == 1
     plain = boundary_flags_torch(
         *card_args[:2], card_args[2].long(), card_args[3].long(), *card_args[4:]
     )
@@ -555,10 +567,10 @@ def test_flag_kernel_equals_the_plain_version(device, case):
     inputs, cols_binned = flag_inputs(case)
     on_cpu = inputs
     inputs = [t.to(device) for t in inputs]
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     kernel = boundary_flags(*inputs, cols_binned=cols_binned)
     again = boundary_flags(*inputs, cols_binned=cols_binned)
-    launches = dict(cuda_paircount.launch_counts)
+    launches = launched()
     plain = boundary_flags_torch(
         *inputs[:2], inputs[2].long(), inputs[3].long(), *inputs[4:],
         cols_binned=cols_binned,
@@ -689,9 +701,9 @@ def test_streamed_flag_pass_on_the_card(device, monkeypatch):
     monkeypatch.setattr(paircount, "AUDIT_RESIDENT_BYTES", 0)
     # windows of 64 tile pairs (the smallest window)
     monkeypatch.setattr(paircount, "AUDIT_WINDOW_BYTES", 1)
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     streamed = flagged(device)
-    assert cuda_paircount.launch_counts["boundary_flags"] == -(-pairs.num_pairs // 64)
+    assert launched()["boundary_flags"] == -(-pairs.num_pairs // 64)
     assert pairs.num_pairs > 64
     assert len(resident) >= 1
     np.testing.assert_array_equal(streamed, resident)
@@ -706,12 +718,12 @@ def test_audit_repairs_the_flip_on_the_card(device):
     ts1, ts2, pairs = cases.port_inputs(case)
     expect = count_pairs_oracle(*cases.oracle_inputs(case, pairs))
     raw = count_pairs_tiles(ts1, ts2, pairs, case["chord2"], device=device)
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     fixed = count_pairs_tiles(
         ts1, ts2, pairs, case["chord2"], device=device,
         edges_radian=case["edges"], audit=True,
     )
-    assert cuda_paircount.launch_counts["boundary_flags"] > 0
+    assert launched()["boundary_flags"] > 0
     assert np.abs(raw - expect).max() > 100.0  # the whole 1e4 pair weight
     assert np.abs(fixed - expect).max() < 1e-3
 
@@ -736,12 +748,12 @@ def test_blocked_audit_matches_in_memory_on_the_card(device):
         rmin=500, rmax=3000, unit="kpc", zmin=0.15, zmax=1.0, num_bins=4
     )
     (memory,) = autocorrelate(config, reference, randoms, device=device, audit=True)
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     (blocked,) = autocorrelate(
         config, reference, randoms, device=device, audit=True,
         max_resident_patches=5,
     )
-    assert cuda_paircount.launch_counts["boundary_flags"] > 0
+    assert launched()["boundary_flags"] > 0
     for name in ("dd", "dr", "rr"):
         np.testing.assert_allclose(
             getattr(blocked, name).counts.counts,
@@ -762,11 +774,11 @@ def test_sharded_on_repeated_card_matches_single_device(device, data_sharding):
         tiles1, tiles2, pairs, table, device=device, mesh="single"
     )
     mesh = Mesh([torch.device("cuda", 0)] * 4)
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     sharded = count_pairs_sharded(
         tiles1, tiles2, pairs, table, mesh=mesh, data_sharding=data_sharding
     )
-    launches = dict(cuda_paircount.launch_counts)
+    launches = launched()
     steps = sum(len(shard) for shard in pairs._device_cache[("shards", data_sharding, 4)])
     assert launches["paircount_partials"] == steps
     assert launches["paircount_segment_sum"] == steps
@@ -876,10 +888,10 @@ def test_measurement_after_build_trees_uploads_and_builds_nothing(device, monkey
     spy(catalog_module, "build_tile_set")
     spy(tiles, "_Upload")
     spy(cuda_paircount, "chunk_caps")
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     (warmed,) = crosscorrelate(config, reference, unknown, ref_rand=randoms, device=device)
     assert events == []
-    assert cuda_paircount.launch_counts["paircount_partials"] == 2
+    assert launched()["paircount_partials"] == 2
     for name in ("dd", "rd"):
         np.testing.assert_array_equal(
             getattr(warmed, name).counts.counts, getattr(expected, name).counts.counts

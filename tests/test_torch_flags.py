@@ -34,6 +34,7 @@ from torch_chunk_cases import (
     near_pairs,
 )
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
+from yet_another_wizz_tpu_torch.utils import tracing
 from yet_another_wizz_tpu_torch.ops.paircount import (
     FLAG_ITEM_CHUNKS,
     audit_band,
@@ -158,7 +159,7 @@ def test_widened_skip_on_clustered_tiles(cols_binned, weights, rel_band):
 
 def test_dispatch_takes_the_plain_version_on_the_cpu():
     inputs = clustered_inputs(5, cols_binned=True, weights="signed")
-    cuda_paircount.reset_launch_counts()
+    tracing.reset()
     flags = boundary_flags(*inputs, cols_binned=True)
     plain = boundary_flags_torch(
         *inputs[:2], inputs[2].long(), inputs[3].long(), *inputs[4:],
@@ -166,7 +167,7 @@ def test_dispatch_takes_the_plain_version_on_the_cpu():
     )
     assert flags.dtype == torch.bool and flags.device.type == "cpu"
     assert torch.equal(flags, plain)
-    assert not any(cuda_paircount.launch_counts.values())
+    assert not any(k.startswith(cuda_paircount.LAUNCHES) for k in tracing.counters)
 
 
 def test_no_flag_pass_off_the_cpu_and_the_card():

@@ -41,9 +41,9 @@ from yet_another_wizz_tpu.correlation.measurements import (  # noqa: E402
 from yet_another_wizz_tpu.redshifts import RedshiftData as JaxRedshiftData  # noqa: E402
 from yet_another_wizz_tpu_torch.catalog import Catalog, LazyCatalog  # noqa: E402
 from yet_another_wizz_tpu_torch.coordinates import AngularCoordinates  # noqa: E402
-from yet_another_wizz_tpu_torch.correlation import blocked  # noqa: E402
 from yet_another_wizz_tpu_torch.correlation.measurements import crosscorrelate  # noqa: E402
 from yet_another_wizz_tpu_torch.redshifts import RedshiftData  # noqa: E402
+from yet_another_wizz_tpu_torch.utils import tracing  # noqa: E402
 
 TINY = ["--rows", "24000", "--patches", "8", "--resident", "3", "--ingest-chunk", "2400",
         "--parquet-chunk", "1200", "--downsample", "4", "--device", "cpu"]
@@ -106,10 +106,11 @@ def measurements(prepared):
     workdir, args, _ = prepared
     config = proof.configuration()
     lazy = [LazyCatalog(workdir / f"cache_{name}") for name in proof.NAMES]
-    blocked.reset_phase_totals()
+    tracing.reset()
     (ours,) = crosscorrelate(config, lazy[0], lazy[1], ref_rand=lazy[2],
                              max_resident_patches=args.resident, device="cpu")
-    our_totals = dict(blocked.PHASE_TOTALS)
+    our_totals = {"num_block_pairs": tracing.counters["blocked.block_pairs"],
+                  "candidate_pairs": tracing.counters["engine.candidate_pairs"]}
 
     from yet_another_wizz_tpu.config import Configuration as JaxConfiguration
 

@@ -60,6 +60,8 @@ RETIRED = {
     "ops/paircount.py::pair_block_counts(lane2)": "R8",
     # the XLA scan engine (K2.4): the port's plain engine replaces it
     "ops/paircount.py::scan_scatter_counts": "R9",
+    # the blocked path's phase timers: the port's spans and counters
+    "correlation/blocked.py::reset_phase_totals": "R11",
 }
 """JAX package names without a counterpart in the port: the module, the
 ``module::name``, the ``module::Class.method`` or the ``name(parameter)``,

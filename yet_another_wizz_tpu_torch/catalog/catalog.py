@@ -41,6 +41,7 @@ from yet_another_wizz_tpu_torch.catalog.patch import (
 from yet_another_wizz_tpu_torch.ops.kmeans import assign_patches, kmeans_patch_centers
 from yet_another_wizz_tpu_torch.ops.tiles import DEFAULT_TILE_SIZE, build_tile_set
 from yet_another_wizz_tpu_torch.options import Closed
+from yet_another_wizz_tpu_torch.utils.tracing import count
 
 if TYPE_CHECKING:
     from collections.abc import Iterator
@@ -984,6 +985,9 @@ class Catalog(Mapping):
             layout: ``"spatial"`` (Morton within patch) or ``"zmajor"``
                 (Morton within (patch, bin); bin-coherent tiles for the
                 per-tile angular-cutoff pruning).
+
+        Each call counts a hit or a miss of the cache (``cache.hit.tiles``,
+        ``cache.miss.tiles``).
         """
         if binning is None:
             key = (None, None, mode, tile_size, "spatial")
@@ -996,7 +1000,9 @@ class Catalog(Mapping):
                 layout,
             )
         if key in self._tile_cache:
+            count("cache.hit.tiles")
             return self._tile_cache[key]
+        count("cache.miss.tiles")
 
         weights = self.weights
         if mode == "k":

@@ -45,6 +45,8 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from yet_another_wizz_tpu_torch.utils.tracing import count
+
 if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.binning import Binning
     from yet_another_wizz_tpu_torch.ops.tiles import TileSet
@@ -124,7 +126,8 @@ class PackedTileStore:
     session caches already cover repeated measurements) or the store is
     disabled. ``load``/``save`` are thread-safe through filesystem
     atomicity — save never overwrites and load treats any unreadable file
-    as a miss.
+    as a miss. ``hits`` / ``misses`` count the loads, as do the counters
+    ``cache.hit.store`` / ``cache.miss.store``.
     """
 
     def __init__(self, directory: Path, fingerprint: str) -> None:
@@ -142,6 +145,7 @@ class PackedTileStore:
                 self.hits += 1
             else:
                 self.misses += 1
+            count("cache.hit.store" if hit else "cache.miss.store")
 
     @classmethod
     def open(

@@ -65,6 +65,7 @@ from yet_another_wizz_tpu_torch.ops.tiles import (
     preferred_tile_layout,
 )
 from yet_another_wizz_tpu_torch.parallel.sharded import resolve_mesh
+from yet_another_wizz_tpu_torch.utils.tracing import count, span
 
 if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.binning import Binning
@@ -74,12 +75,10 @@ if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 __all__ = [
-    "PHASE_TOTALS",
     "PIPELINE_DEPTH",
     "active_tile_cache",
     "count_pairs_blocked",
     "measurement_tile_cache",
-    "reset_phase_totals",
     "scatter_block_scales",
 ]
 
@@ -703,302 +702,300 @@ packs and loads the tiles of later ones; once this many are queued, the
 host waits for the older half (and, with ``YAWT_DEVICE_ACCUMULATE=0``,
 copies their counts to the host and scatters them)."""
 
-PHASE_TOTALS: dict = {}
-"""Accumulated phase breakdown of the blocked counts run in this process
-(diagnostic; reset with :func:`reset_phase_totals`), in host seconds:
-tile acquisition (``rows``, ``cols``: cache or store load, or packing),
-pair-list builds (``pairs``), engine queueing (``queue``), and the drains
-split into waiting for the card (``drain_wait``), copying results to the
-host (``drain_fetch``) and the host scatter (``drain_scatter``), plus
-``preamble`` and ``teardown``. On a CUDA device ``upload`` holds the card's
-seconds for the lane copies of the prefetch workers' side stream (CUDA
-events around each copy) and ``upload_bytes`` their bytes. The counters
-are ``num_block_pairs`` (engine calls), ``candidate_pairs`` (tile pairs x
-tile size^2) and the packed-tile stores' ``store_hits`` / ``store_misses``.
-"""
-
-
-def reset_phase_totals() -> None:
-    """Clear :data:`PHASE_TOTALS` (start of a timed window)."""
-    PHASE_TOTALS.clear()
-
-
 def _blocked_loop(
     edges, linkage, catalog1, catalog2, binning, starts, block,
     *, auto, binned2, mode, tile_size, backend, device, layout1, layout2,
     indicator, num_patches, result, cache, audit=False, mesh=None,
     data_sharding="replicated",
 ) -> None:
-    t_entry = time.perf_counter()
+    """The sweep over the block pairs of one count. Its phases are spans
+    (:mod:`~yet_another_wizz_tpu_torch.utils.tracing`): ``blocked.preamble``,
+    per block pair ``blocked.rows`` and ``blocked.cols`` (tile acquisition:
+    cache or store load, or packing), ``blocked.pairs`` (the pair list) and
+    ``blocked.queue`` (the engine's queueing), the drains' ``blocked.drain_wait``
+    (waiting for the card), ``blocked.drain_fetch`` (copying results to the
+    host) and ``blocked.drain_scatter`` (the host scatter), and
+    ``blocked.teardown``. It counts ``blocked.block_pairs`` (engine calls)
+    and, on a CUDA device, ``blocked.upload_bytes`` and ``blocked.upload_s``
+    (the lane copies of the prefetch workers' side stream, timed by CUDA
+    events around each copy). A debug log line sums the phases."""
     phases = {
         "rows": 0.0, "cols": 0.0, "pairs": 0.0, "queue": 0.0, "drain": 0.0,
         "drain_wait": 0.0, "drain_fetch": 0.0, "drain_scatter": 0.0,
-        "preamble": 0.0, "teardown": 0.0, "upload": 0.0, "upload_bytes": 0,
-        "store_hits": 0, "store_misses": 0,
+        "upload": 0.0,
     }
 
     def timed(key, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
+        with span(f"blocked.{key}"):
+            out = fn(*args, **kwargs)
         phases[key] += time.perf_counter() - t0
         return out
 
-    on_card = backend != "oracle" and device.type == "cuda"
-    # the counts are reduced and scattered on the device into one small
-    # accumulator, fetched once per count; YAWT_DEVICE_ACCUMULATE=0 copies
-    # each block pair's counts to the host and scatters them there, as do
-    # the audit, whose repaired counts are float64 on the host, and a mesh
-    device_accumulate = (
-        backend != "oracle"
-        and not audit
-        and mesh is None
-        and os.environ.get("YAWT_DEVICE_ACCUMULATE", "1").strip() != "0"
-    )
-    # per queued block pair: the event after its work on the card (None off
-    # the card), then, without device accumulation, its host copy and slots
-    pending: list = []
+    with span("blocked.preamble"):
+        on_card = backend != "oracle" and device.type == "cuda"
+        # the counts are reduced and scattered on the device into one small
+        # accumulator, fetched once per count; YAWT_DEVICE_ACCUMULATE=0 copies
+        # each block pair's counts to the host and scatters them there, as do
+        # the audit, whose repaired counts are float64 on the host, and a mesh
+        device_accumulate = (
+            backend != "oracle"
+            and not audit
+            and mesh is None
+            and os.environ.get("YAWT_DEVICE_ACCUMULATE", "1").strip() != "0"
+        )
+        # per queued block pair: the event after its work on the card (None off
+        # the card), then, without device accumulation, its host copy and slots
+        pending: list = []
 
-    def drain(keep: int) -> None:
-        """Wait for the block pairs queued before the last ``keep`` and,
-        without device accumulation, copy their counts to the host and
-        scatter them into ``result``."""
-        t0 = time.perf_counter()
-        if len(pending) > keep:
-            take = pending[: len(pending) - keep]
-            del pending[: len(pending) - keep]
-            for item in take:
-                if item[0] is not None:
-                    item[0].synchronize()
-            t1 = time.perf_counter()
-            phases["drain_wait"] += t1 - t0
-            if not device_accumulate:
-                fetched = [item[1]() for item in take]
-                t2 = time.perf_counter()
-                phases["drain_fetch"] += t2 - t1
-                for (_, _, mapper, pairs, lo1, lo2), values in zip(take, fetched):
-                    per_scale = mapper.counts_to_scales(values)
-                    global1 = pairs.slot_patches[:, 0] + lo1
-                    global2 = pairs.slot_patches[:, 1] + lo2
-                    if auto:
-                        per_scale[:, global1 == global2, :] *= 0.5
-                    result[:, :, global1, global2] += np.moveaxis(per_scale, 1, -1)
-                phases["drain_scatter"] += time.perf_counter() - t2
-        phases["drain"] += time.perf_counter() - t0
+        def drain(keep: int) -> None:
+            """Wait for the block pairs queued before the last ``keep`` and,
+            without device accumulation, copy their counts to the host and
+            scatter them into ``result``."""
+            t0 = time.perf_counter()
+            if len(pending) > keep:
+                take = pending[: len(pending) - keep]
+                del pending[: len(pending) - keep]
+                with span("blocked.drain_wait"):
+                    for item in take:
+                        if item[0] is not None:
+                            item[0].synchronize()
+                t1 = time.perf_counter()
+                phases["drain_wait"] += t1 - t0
+                if not device_accumulate:
+                    with span("blocked.drain_fetch"):
+                        fetched = [item[1]() for item in take]
+                    t2 = time.perf_counter()
+                    phases["drain_fetch"] += t2 - t1
+                    with span("blocked.drain_scatter"):
+                        for (_, _, mapper, pairs, lo1, lo2), values in zip(
+                            take, fetched
+                        ):
+                            per_scale = mapper.counts_to_scales(values)
+                            global1 = pairs.slot_patches[:, 0] + lo1
+                            global2 = pairs.slot_patches[:, 1] + lo2
+                            if auto:
+                                per_scale[:, global1 == global2, :] *= 0.5
+                            result[:, :, global1, global2] += np.moveaxis(
+                                per_scale, 1, -1
+                            )
+                    phases["drain_scatter"] += time.perf_counter() - t2
+            phases["drain"] += time.perf_counter() - t0
 
-    def queued_event():
-        """An event after the work queued so far on the card (None off it)."""
-        if not on_card:
-            return None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(device))
-        return done
+        def queued_event():
+            """An event after the work queued so far on the card (None off it)."""
+            if not on_card:
+                return None
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            return done
 
-    def host_copy(cumulative):
-        """Start copying one block pair's counts to the host; returns the
-        callable that reads them as float64 once the copy is done."""
-        if isinstance(cumulative, np.ndarray):  # oracle backend
-            return lambda: cumulative
-        if not on_card:
-            return lambda: cumulative.numpy().astype(np.float64)
-        host = torch.empty(cumulative.shape, dtype=cumulative.dtype, pin_memory=True)
-        host.copy_(cumulative, non_blocking=True)
-        return lambda: host.numpy().astype(np.float64)
-
-    accum_state = {"accum": None, "scale_map": None}
-
-    def queue_scatter(cumulative, mapper, pairs, lo1, lo2) -> None:
-        """Queue the device reduction of one block pair's counts."""
-        if accum_state["accum"] is None:
-            accum_state["accum"] = torch.zeros(
-                result.shape, dtype=torch.float32, device=device
+        def host_copy(cumulative):
+            """Start copying one block pair's counts to the host; returns the
+            callable that reads them as float64 once the copy is done."""
+            if isinstance(cumulative, np.ndarray):  # oracle backend
+                return lambda: cumulative
+            if not on_card:
+                return lambda: cumulative.numpy().astype(np.float64)
+            host = torch.empty(
+                cumulative.shape, dtype=cumulative.dtype, pin_memory=True
             )
-            accum_state["scale_map"] = torch.from_numpy(
-                mapper.scale_maps.astype(np.float32)
-            ).to(device)
-        global1 = pairs.slot_patches[:, 0] + lo1
-        global2 = pairs.slot_patches[:, 1] + lo2
-        index = torch.from_numpy(np.stack([global1, global2]).astype(np.int64))
-        index = index.to(device)
-        factor = None
-        if auto:
-            factor = torch.from_numpy(
-                np.where(global1 == global2, 0.5, 1.0).astype(np.float32)
-            ).to(device)
-        scatter_block_scales(
-            cumulative, accum_state["scale_map"], index[0], index[1], factor,
-            accum_state["accum"],
+            host.copy_(cumulative, non_blocking=True)
+            return lambda: host.numpy().astype(np.float64)
+
+        accum_state = {"accum": None, "scale_map": None}
+
+        def queue_scatter(cumulative, mapper, pairs, lo1, lo2) -> None:
+            """Queue the device reduction of one block pair's counts."""
+            if accum_state["accum"] is None:
+                accum_state["accum"] = torch.zeros(
+                    result.shape, dtype=torch.float32, device=device
+                )
+                accum_state["scale_map"] = torch.from_numpy(
+                    mapper.scale_maps.astype(np.float32)
+                ).to(device)
+            global1 = pairs.slot_patches[:, 0] + lo1
+            global2 = pairs.slot_patches[:, 1] + lo2
+            index = torch.from_numpy(np.stack([global1, global2]).astype(np.int64))
+            index = index.to(device)
+            factor = None
+            if auto:
+                factor = torch.from_numpy(
+                    np.where(global1 == global2, 0.5, 1.0).astype(np.float32)
+                ).to(device)
+            scatter_block_scales(
+                cumulative, accum_state["scale_map"], index[0], index[1], factor,
+                accum_state["accum"],
+            )
+
+        # lanes of prefetched blocks are copied on a side stream, overlapping
+        # the kernels queued on the current one (TileSet.device_data makes the
+        # current stream wait for a copy before its first use); a mesh places
+        # its lanes per call
+        upload_stream = torch.cuda.Stream(device) if on_card and mesh is None else None
+        uploads: list = []
+
+        def warm_upload(tiles):
+            if upload_stream is not None and tiles.device_upload(device) is None:
+                tiles.device_data(device, stream=upload_stream)
+                uploads.append((tiles.device_upload(device), tiles.lane_data.nbytes))
+            return tiles
+
+        # cache keys carry everything that shapes a block's tile set; catalogs
+        # are keyed by weak identity (their data has no cheap content
+        # fingerprint), the binning by value. Row blocks are admitted when the
+        # cache is measurement-scoped (store_rows) or when both sides are
+        # identical (autocorrelation-shaped counts).
+        cache_rows = False
+        row_base = col_base = None
+        gen_token = None
+        if cache is not None:
+            binning_key = (binning.edges.tobytes(), str(binning.closed))
+            row_base = (
+                _WeakId(catalog1), binning_key, mode[0], layout1, block, tile_size,
+            )
+            col_base = (
+                _WeakId(catalog2), binning_key if binned2 else None, mode[1],
+                layout2, block, tile_size,
+            )
+            cache_rows = cache.store_rows or row_base == col_base
+            gen_token = cache.begin_count()
+
+        # persistent packed-tile stores: packed blocks are a pure function of
+        # (catalog, binning, mode, layout, block size, tile size), so for
+        # disk-cached catalogs they live next to the patch cache
+        row_store = PackedTileStore.open(
+            catalog1, binning, mode[0], layout1, block, tile_size
+        )
+        col_store = PackedTileStore.open(
+            catalog2, binning if binned2 else None, mode[1], layout2, block, tile_size
         )
 
-    # lanes of prefetched blocks are copied on a side stream, overlapping
-    # the kernels queued on the current one (TileSet.device_data makes the
-    # current stream wait for a copy before its first use); a mesh places
-    # its lanes per call
-    upload_stream = torch.cuda.Stream(device) if on_card and mesh is None else None
-    uploads: list = []
-
-    def warm_upload(tiles):
-        if upload_stream is not None and tiles.device_upload(device) is None:
-            tiles.device_data(device, stream=upload_stream)
-            uploads.append((tiles.device_upload(device), tiles.lane_data.nbytes))
-        return tiles
-
-    # cache keys carry everything that shapes a block's tile set; catalogs
-    # are keyed by weak identity (their data has no cheap content
-    # fingerprint), the binning by value. Row blocks are admitted when the
-    # cache is measurement-scoped (store_rows) or when both sides are
-    # identical (autocorrelation-shaped counts).
-    cache_rows = False
-    row_base = col_base = None
-    gen_token = None
-    if cache is not None:
-        binning_key = (binning.edges.tobytes(), str(binning.closed))
-        row_base = (
-            _WeakId(catalog1), binning_key, mode[0], layout1, block, tile_size,
-        )
-        col_base = (
-            _WeakId(catalog2), binning_key if binned2 else None, mode[1],
-            layout2, block, tile_size,
-        )
-        cache_rows = cache.store_rows or row_base == col_base
-        gen_token = cache.begin_count()
-
-    # persistent packed-tile stores: packed blocks are a pure function of
-    # (catalog, binning, mode, layout, block size, tile size), so for
-    # disk-cached catalogs they live next to the patch cache
-    row_store = PackedTileStore.open(
-        catalog1, binning, mode[0], layout1, block, tile_size
-    )
-    col_store = PackedTileStore.open(
-        catalog2, binning if binned2 else None, mode[1], layout2, block, tile_size
-    )
-
-    def acquire(side: str, lo: int):
-        """Load-or-build the tile set of one block (thread-safe: cache
-        loads are read-only, ``load_block`` is a stateless read, cache
-        stores happen in the main thread, store saves are atomic files).
-        Returns the tiles and whether they still have to enter the
-        session cache."""
-        if side == "rows":
-            use_cache, key = cache_rows, row_base
-            store, catalog, side_binning = row_store, catalog1, binning
-            side_mode, layout = mode[0], layout1
-        else:
-            use_cache, key = cache is not None, col_base
-            store, catalog = col_store, catalog2
-            side_binning = binning if binned2 else None
-            side_mode, layout = mode[1], layout2
-        if use_cache:
-            tiles = cache.load(key + (lo,))
-            if tiles is not None:
-                return warm_upload(tiles), False
-        if store is not None:
-            tiles = store.load(lo)
-            if tiles is not None:
-                return warm_upload(tiles), True
-        hi = min(lo + block, num_patches)
-        tiles = _build_block_tiles(
-            catalog, side_binning, side_mode, lo, hi, tile_size, layout=layout
-        )
-        if store is not None:
-            store.save(lo, tiles)
-        return warm_upload(tiles), True
-
-    def qualifying_linkage(lo1, lo2):
-        """The masked linked matrix of a block pair, or None when the pair
-        contributes nothing: the single source of which block pairs run."""
-        hi1 = min(lo1 + block, num_patches)
-        hi2 = min(lo2 + block, num_patches)
-        if auto and hi2 <= lo1:
-            return None  # only patch pairs with id2 >= id1 contribute
-        linked = linkage.linked[lo1:hi1, lo2:hi2]
-        if auto:
-            ids1 = np.arange(lo1, hi1)[:, None]
-            ids2 = np.arange(lo2, hi2)[None, :]
-            linked = linked & (ids2 >= ids1)
-        return linked if linked.any() else None
-
-    linked_by_pair = {
-        (lo1, lo2): linked
-        for lo1 in starts
-        for lo2 in starts
-        if (linked := qualifying_linkage(lo1, lo2)) is not None
-    }
-    pair_seq = list(linked_by_pair)
-    sequences = {
-        "rows": list(dict.fromkeys(lo1 for lo1, _ in pair_seq)),
-        "cols": [lo2 for _, lo2 in pair_seq],
-    }
-    # up to ``YAWT_PREFETCH_BLOCKS`` blocks in flight per side; numpy
-    # sorting and the native packer release the GIL, so up to two workers
-    # per side run in parallel
-    prefetch_depth = max(1, int(os.environ.get("YAWT_PREFETCH_BLOCKS", "1") or 1))
-    executors = {
-        side: ThreadPoolExecutor(
-            max_workers=min(2, prefetch_depth),
-            thread_name_prefix=f"yawt-{side}-pack",
-        )
-        for side in ("rows", "cols")
-        if len(sequences[side]) > 1
-    }
-    futures: dict = {"rows": {}, "cols": {}}
-    cursors = {"rows": 0, "cols": 0}
-
-    def top_up(side: str) -> None:
-        """Keep up to ``prefetch_depth`` futures outstanding on one side
-        (main thread only). A cursor may pass a block whose future was
-        consumed before its later duplicate position; the direct acquire
-        then hits the resident cache."""
-        if side not in executors:
-            return
-        sequence, pending_side = sequences[side], futures[side]
-        while len(pending_side) < prefetch_depth and cursors[side] < len(sequence):
-            lo = sequence[cursors[side]]
-            cursors[side] += 1
-            if lo not in pending_side:
-                pending_side[lo] = executors[side].submit(acquire, side, lo)
-
-    def get_tiles(side: str, lo: int):
-        """The tile set of one block, entered into the session cache when
-        it was built or loaded from the store. In autocorrelation-shaped
-        counts the twin of a block may have landed in the resident cache
-        (uploaded) while a worker built it: that twin is preferred."""
-        fut = futures[side].pop(lo, None)
-        if fut is not None:
-            tiles, built = timed(side, fut.result)
-        else:
-            tiles, built = timed(side, acquire, side, lo)
-        use_cache = cache_rows if side == "rows" else cache is not None
-        if built and use_cache:
-            key = (row_base if side == "rows" else col_base) + (lo,)
-            twin = None
-            if cache_rows and row_base == col_base:
-                twin = cache.load(key, count=False, resident_only=True)
-            if twin is not None:
-                tiles = twin
+        def acquire(side: str, lo: int):
+            """Load-or-build the tile set of one block (thread-safe: cache
+            loads are read-only, ``load_block`` is a stateless read, cache
+            stores happen in the main thread, store saves are atomic files).
+            Returns the tiles and whether they still have to enter the
+            session cache."""
+            if side == "rows":
+                use_cache, key = cache_rows, row_base
+                store, catalog, side_binning = row_store, catalog1, binning
+                side_mode, layout = mode[0], layout1
             else:
-                timed(side, cache.store, key, tiles)
-        top_up(side)
-        return tiles
+                use_cache, key = cache is not None, col_base
+                store, catalog = col_store, catalog2
+                side_binning = binning if binned2 else None
+                side_mode, layout = mode[1], layout2
+            if use_cache:
+                tiles = cache.load(key + (lo,))
+                if tiles is not None:
+                    return warm_upload(tiles), False
+            if store is not None:
+                tiles = store.load(lo)
+                if tiles is not None:
+                    return warm_upload(tiles), True
+            hi = min(lo + block, num_patches)
+            tiles = _build_block_tiles(
+                catalog, side_binning, side_mode, lo, hi, tile_size, layout=layout
+            )
+            if store is not None:
+                store.save(lo, tiles)
+            return warm_upload(tiles), True
 
-    top_up("rows")
-    top_up("cols")
+        def qualifying_linkage(lo1, lo2):
+            """The masked linked matrix of a block pair, or None when the pair
+            contributes nothing: the single source of which block pairs run."""
+            hi1 = min(lo1 + block, num_patches)
+            hi2 = min(lo2 + block, num_patches)
+            if auto and hi2 <= lo1:
+                return None  # only patch pairs with id2 >= id1 contribute
+            linked = linkage.linked[lo1:hi1, lo2:hi2]
+            if auto:
+                ids1 = np.arange(lo1, hi1)[:, None]
+                ids2 = np.arange(lo2, hi2)[None, :]
+                linked = linked & (ids2 >= ids1)
+            return linked if linked.any() else None
 
-    num_block_pairs = 0
-    num_candidate_pairs = 0
-    # direct separation-weighted counting when available (the oracle
-    # backend and the audit require the union-edge representation); the
-    # combined table is built once, not per block pair
-    direct = edges.direct if backend != "oracle" and not audit else None
-    if direct is not None:
-        table, edges_radian, spec, mapper = (
-            direct.combined_table(), direct.edges, direct.spec, direct
-        )
-    else:
-        table, edges_radian, spec, mapper = (
-            edges.chord2_table, edges.edges, None, edges
-        )
-    bin_max_angles = edges.edges.max(axis=1)
-    phases["preamble"] = time.perf_counter() - t_entry
+        linked_by_pair = {
+            (lo1, lo2): linked
+            for lo1 in starts
+            for lo2 in starts
+            if (linked := qualifying_linkage(lo1, lo2)) is not None
+        }
+        pair_seq = list(linked_by_pair)
+        sequences = {
+            "rows": list(dict.fromkeys(lo1 for lo1, _ in pair_seq)),
+            "cols": [lo2 for _, lo2 in pair_seq],
+        }
+        # up to ``YAWT_PREFETCH_BLOCKS`` blocks in flight per side; numpy
+        # sorting and the native packer release the GIL, so up to two workers
+        # per side run in parallel
+        prefetch_depth = max(1, int(os.environ.get("YAWT_PREFETCH_BLOCKS", "1") or 1))
+        executors = {
+            side: ThreadPoolExecutor(
+                max_workers=min(2, prefetch_depth),
+                thread_name_prefix=f"yawt-{side}-pack",
+            )
+            for side in ("rows", "cols")
+            if len(sequences[side]) > 1
+        }
+        futures: dict = {"rows": {}, "cols": {}}
+        cursors = {"rows": 0, "cols": 0}
+
+        def top_up(side: str) -> None:
+            """Keep up to ``prefetch_depth`` futures outstanding on one side
+            (main thread only). A cursor may pass a block whose future was
+            consumed before its later duplicate position; the direct acquire
+            then hits the resident cache."""
+            if side not in executors:
+                return
+            sequence, pending_side = sequences[side], futures[side]
+            while len(pending_side) < prefetch_depth and cursors[side] < len(sequence):
+                lo = sequence[cursors[side]]
+                cursors[side] += 1
+                if lo not in pending_side:
+                    pending_side[lo] = executors[side].submit(acquire, side, lo)
+
+        def get_tiles(side: str, lo: int):
+            """The tile set of one block, entered into the session cache when
+            it was built or loaded from the store. In autocorrelation-shaped
+            counts the twin of a block may have landed in the resident cache
+            (uploaded) while a worker built it: that twin is preferred."""
+            fut = futures[side].pop(lo, None)
+            if fut is not None:
+                tiles, built = timed(side, fut.result)
+            else:
+                tiles, built = timed(side, acquire, side, lo)
+            use_cache = cache_rows if side == "rows" else cache is not None
+            if built and use_cache:
+                key = (row_base if side == "rows" else col_base) + (lo,)
+                twin = None
+                if cache_rows and row_base == col_base:
+                    twin = cache.load(key, count=False, resident_only=True)
+                if twin is not None:
+                    tiles = twin
+                else:
+                    timed(side, cache.store, key, tiles)
+            top_up(side)
+            return tiles
+
+        top_up("rows")
+        top_up("cols")
+
+        num_block_pairs = 0
+        # direct separation-weighted counting when available (the oracle
+        # backend and the audit require the union-edge representation); the
+        # combined table is built once, not per block pair
+        direct = edges.direct if backend != "oracle" and not audit else None
+        if direct is not None:
+            table, edges_radian, spec, mapper = (
+                direct.combined_table(), direct.edges, direct.spec, direct
+            )
+        else:
+            table, edges_radian, spec, mapper = (
+                edges.chord2_table, edges.edges, None, edges
+            )
+        bin_max_angles = edges.edges.max(axis=1)
 
     try:
         for lo1 in starts:
@@ -1025,9 +1022,7 @@ def _blocked_loop(
                 if pairs.num_pairs == 0:
                     continue
                 num_block_pairs += 1
-                num_candidate_pairs += (
-                    int(pairs.num_pairs) * tiles1.tile_size * tiles2.tile_size
-                )
+                count("blocked.block_pairs")
                 # with audit, the block pair's repaired counts come back
                 # synchronously as float64 host arrays
                 cumulative = timed(
@@ -1052,39 +1047,39 @@ def _blocked_loop(
         if accum_state["accum"] is not None:
             # the single result fetch of the accumulation mode
             t0 = time.perf_counter()
-            done = queued_event()
-            if done is not None:
-                done.synchronize()
+            with span("blocked.drain_wait"):
+                done = queued_event()
+                if done is not None:
+                    done.synchronize()
             t1 = time.perf_counter()
             phases["drain_wait"] += t1 - t0
-            fetched = accum_state["accum"].cpu().numpy()
+            with span("blocked.drain_fetch"):
+                fetched = accum_state["accum"].cpu().numpy()
             t2 = time.perf_counter()
             phases["drain_fetch"] += t2 - t1
-            result += fetched.astype(np.float64)
+            with span("blocked.drain_scatter"):
+                result += fetched.astype(np.float64)
             phases["drain_scatter"] += time.perf_counter() - t2
             phases["drain"] += time.perf_counter() - t0
     finally:
         # shut the prefetch workers down on every path: an exception
         # mid-sweep must not leak executors whose futures pin packed blocks
-        t_teardown = time.perf_counter()
-        for pool in executors.values():
-            pool.shutdown(wait=True, cancel_futures=True)
-        if gen_token is not None:
-            cache.end_count(gen_token)
-        phases["teardown"] = time.perf_counter() - t_teardown
+        with span("blocked.teardown"):
+            for pool in executors.values():
+                pool.shutdown(wait=True, cancel_futures=True)
+            if gen_token is not None:
+                cache.end_count(gen_token)
     if indicator is not None:
         next(indicator, None)  # prints the 100% line
 
-    for store in (row_store, col_store):
-        if store is not None:
-            phases["store_hits"] += store.hits
-            phases["store_misses"] += store.misses
     # the side-stream copies are done: every one was waited for before its
     # lanes were read, and the final drain waited for the card
     for (start, stop), nbytes in {id(u[0]): u for u in uploads}.values():
         stop.synchronize()
-        phases["upload"] += start.elapsed_time(stop) / 1e3
-        phases["upload_bytes"] += nbytes
+        seconds = start.elapsed_time(stop) / 1e3
+        phases["upload"] += seconds
+        count("blocked.upload_s", seconds)
+        count("blocked.upload_bytes", nbytes)
 
     logger.debug(
         "processed %d resident block pairs of <=%d patches (rows %.2fs, "
@@ -1094,14 +1089,4 @@ def _blocked_loop(
         phases["pairs"], phases["queue"], phases["drain"],
         phases["drain_wait"], phases["drain_fetch"], phases["drain_scatter"],
         phases["upload"],
-    )
-    for key, value in phases.items():
-        PHASE_TOTALS[key] = PHASE_TOTALS.get(key, 0) + value
-    PHASE_TOTALS["num_block_pairs"] = (
-        PHASE_TOTALS.get("num_block_pairs", 0) + num_block_pairs
-    )
-    # the engine's work statistic, summed over blocks: the only place it
-    # is knowable for a LazyCatalog, whose full-catalog tiles never exist
-    PHASE_TOTALS["candidate_pairs"] = (
-        PHASE_TOTALS.get("candidate_pairs", 0) + num_candidate_pairs
     )

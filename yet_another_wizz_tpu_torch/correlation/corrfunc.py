@@ -27,6 +27,7 @@ from yet_another_wizz_tpu_torch.correlation.paircounts import (
 )
 from yet_another_wizz_tpu_torch.options import ResamplingMethod
 from yet_another_wizz_tpu_torch.utils import write_version_tag
+from yet_another_wizz_tpu_torch.utils.tracing import spanned
 from yet_another_wizz_tpu_torch.utils.abc import (
     BinwiseData,
     HdfSerializable,
@@ -222,6 +223,7 @@ class BaseCorrFunc(
     def get_estimator(self) -> Callable[..., NDArray]:
         """The most appropriate estimator for the stored pair counts."""
 
+    @spanned("post.sample")
     def sample(
         self,
         method: ResamplingMethod | str = ResamplingMethod.jackknife,

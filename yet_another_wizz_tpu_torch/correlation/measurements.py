@@ -17,6 +17,15 @@ first result is read: each result is copied to pinned host memory without
 blocking, and the host waits for one count at a time while it
 post-processes the previous one.
 
+While a torch profiler records, the stages are spans
+(:mod:`~yet_another_wizz_tpu_torch.utils.tracing`): the call itself
+(``crosscorrelate``, ``autocorrelate`` and the scalar variants), the patch
+linkage and edge tables (``linkage``), and per count type
+``count.<dd|dr|rd|rr>``, once while the count is queued (the tile lookup
+``tiles``, the pair list ``pairs``, ``engine.queue`` from the threshold
+table to the queued copy of the result) and once while it is finished
+(``finalize``, with the wait for the result, ``fetch``).
+
 With ``max_resident_patches`` the counts stream through the blocked
 out-of-core path instead (:mod:`yet_another_wizz_tpu_torch.correlation.
 blocked`), which also takes a disk-backed
@@ -73,6 +82,7 @@ from yet_another_wizz_tpu_torch.ops.thresholds import (
     build_angular_edges,
 )
 from yet_another_wizz_tpu_torch.ops.tiles import preferred_tile_layout
+from yet_another_wizz_tpu_torch.utils.tracing import span, spanned
 
 if TYPE_CHECKING:
     from collections.abc import Callable
@@ -134,20 +144,27 @@ def _preferred_tile_layout(
 
 def _copy_to_host(result: NDArray | torch.Tensor) -> Callable[[], NDArray]:
     """Start moving an engine result to the host; the returned callable
-    waits for it and returns float64 numpy. A CUDA result is copied into
-    pinned memory without blocking, after the work already queued on the
-    current stream."""
+    waits for it (the span ``fetch``) and returns float64 numpy. A CUDA
+    result is copied into pinned memory without blocking, after the work
+    already queued on the current stream."""
     if isinstance(result, np.ndarray):
         return lambda: result
     if result.device.type != "cuda":
-        return lambda: result.numpy().astype(np.float64)
+
+        def read() -> NDArray:
+            with span("fetch"):
+                host = result.numpy()
+            return host.astype(np.float64)
+
+        return read
     host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
     host.copy_(result, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(result.device))
 
     def wait() -> NDArray:
-        done.synchronize()
+        with span("fetch"):
+            done.synchronize()
         return host.numpy().astype(np.float64)
 
     return wait
@@ -198,6 +215,7 @@ class PatchLinkage:
         )
 
     @classmethod
+    @spanned("linkage")
     def from_catalogs(
         cls,
         config: Configuration,
@@ -306,9 +324,13 @@ class PatchLinkage:
         catalog2 = main_catalog if auto else optional_catalog[0]
         if binned2 is None:
             binned2 = auto
+        # the span of the count type: "count.dd" for "DD", "DD (nn)", ...
+        name = "count"
+        if count_type_info:
+            name += "." + count_type_info.split()[0].lower()
 
         if max_resident_patches is not None:
-            with thread_limit(max_workers):
+            with span(name), thread_limit(max_workers):
                 counts, sum_weights = self._run_blocked(
                     catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
                     backend=backend, device=device,
@@ -321,7 +343,7 @@ class PatchLinkage:
             ]
             return (lambda: result) if _defer else result
 
-        with thread_limit(max_workers):
+        with span(name), thread_limit(max_workers):
             finalize_engine = self._run_engine(
                 catalog1, catalog2, auto=auto, binned2=binned2, mode=mode,
                 backend=backend, device=device, audit=audit, mesh=mesh,
@@ -329,7 +351,7 @@ class PatchLinkage:
             )
 
         def finish() -> list[NormalisedCounts]:
-            with thread_limit(max_workers):
+            with span(name), thread_limit(max_workers):
                 counts, sum_weights = finalize_engine()
             return [
                 NormalisedCounts(per_scale, sum_weights)
@@ -429,26 +451,28 @@ class PatchLinkage:
         binning = self.config.binning.binning
         num_bins = len(binning)
 
-        tiles1 = catalog1.get_tiles(
-            binning, mode=mode[0],
-            layout=_preferred_tile_layout(
-                catalog1, num_bins, self.edges, equal_bin_counting=binned2
-            ),
-        )
-        tiles2 = catalog2.get_tiles(
-            binning if binned2 else None, mode=mode[1],
-            layout=(
-                _preferred_tile_layout(
-                    catalog2, num_bins, self.edges, equal_bin_counting=True
-                )
-                if binned2
-                else "spatial"
-            ),
-        )
-        pairs = build_tile_pairs(
-            tiles1, tiles2, self.linkage, auto=auto,
-            bin_max_angles=self.edges.edges.max(axis=1),
-        )
+        with span("tiles"):
+            tiles1 = catalog1.get_tiles(
+                binning, mode=mode[0],
+                layout=_preferred_tile_layout(
+                    catalog1, num_bins, self.edges, equal_bin_counting=binned2
+                ),
+            )
+            tiles2 = catalog2.get_tiles(
+                binning if binned2 else None, mode=mode[1],
+                layout=(
+                    _preferred_tile_layout(
+                        catalog2, num_bins, self.edges, equal_bin_counting=True
+                    )
+                    if binned2
+                    else "spatial"
+                ),
+            )
+        with span("pairs"):
+            pairs = build_tile_pairs(
+                tiles1, tiles2, self.linkage, auto=auto,
+                bin_max_angles=self.edges.edges.max(axis=1),
+            )
         return tiles1, tiles2, pairs
 
     def num_candidate_pairs(
@@ -529,43 +553,46 @@ class PatchLinkage:
             pairs.num_pairs,
             pairs.num_slots,
         )
-        table, edges_radian, direct_spec, mapper = self.engine_table(
-            backend, audit
-        )
-        # the audit returns its repaired float64 counts synchronously
-        cumulative = count_pairs_tiles(
-            tiles1, tiles2, pairs, table,
-            backend=backend, device=device, edges_radian=edges_radian,
-            audit=audit, mesh=mesh, data_sharding=data_sharding, defer=True,
-            direct=direct_spec,
-        )
-        fetch = _copy_to_host(cumulative)
+        with span("engine.queue"):
+            table, edges_radian, direct_spec, mapper = self.engine_table(
+                backend, audit
+            )
+            # the audit returns its repaired float64 counts synchronously
+            cumulative = count_pairs_tiles(
+                tiles1, tiles2, pairs, table,
+                backend=backend, device=device, edges_radian=edges_radian,
+                audit=audit, mesh=mesh, data_sharding=data_sharding, defer=True,
+                direct=direct_spec,
+            )
+            fetch = _copy_to_host(cumulative)
 
         def finalize():
-            per_scale = mapper.counts_to_scales(fetch())  # (S, slots, B)
-            slot_ids1 = pairs.slot_patches[:, 0]
-            slot_ids2 = pairs.slot_patches[:, 1]
-            if auto:
-                same = slot_ids1 == slot_ids2
-                per_scale[:, same, :] *= 0.5  # ordered pairs double-count
+            with span("finalize"):
+                per_scale = mapper.counts_to_scales(fetch())  # (S, slots, B)
+                slot_ids1 = pairs.slot_patches[:, 0]
+                slot_ids2 = pairs.slot_patches[:, 1]
+                if auto:
+                    same = slot_ids1 == slot_ids2
+                    per_scale[:, same, :] *= 0.5  # ordered pairs double-count
 
-            counts = []
-            for scale_values in per_scale:
-                patched = PatchedCounts.zeros(binning, num_patches, auto=auto)
-                patched.counts[:, slot_ids1, slot_ids2] = scale_values.T
-                counts.append(patched)
+                counts = []
+                for scale_values in per_scale:
+                    patched = PatchedCounts.zeros(binning, num_patches, auto=auto)
+                    patched.counts[:, slot_ids1, slot_ids2] = scale_values.T
+                    counts.append(patched)
 
-            sum_weights = PatchedSumWeights(
-                binning,
-                tiles1.bin_sum_weights(num_bins),
-                tiles2.bin_sum_weights(num_bins),
-                auto=auto,
-            )
+                sum_weights = PatchedSumWeights(
+                    binning,
+                    tiles1.bin_sum_weights(num_bins),
+                    tiles2.bin_sum_weights(num_bins),
+                    auto=auto,
+                )
             return counts, sum_weights
 
         return finalize
 
 
+@spanned("autocorrelate")
 def autocorrelate(
     config: Configuration,
     data: Catalog,
@@ -628,6 +655,7 @@ def autocorrelate(
     return [CorrFunc(a, b, None, c) for a, b, c in zip(dd, dr, rr)]
 
 
+@spanned("crosscorrelate")
 def crosscorrelate(
     config: Configuration,
     reference: Catalog,
@@ -730,6 +758,7 @@ def compute_scalar_normalisation(
     )
 
 
+@spanned("autocorrelate_scalar")
 def autocorrelate_scalar(
     config: Configuration,
     data: Catalog,
@@ -760,6 +789,7 @@ def autocorrelate_scalar(
     return [ScalarCorrFunc(counts) for counts in dd]
 
 
+@spanned("crosscorrelate_scalar")
 def crosscorrelate_scalar(
     config: Configuration,
     reference: Catalog,

@@ -66,9 +66,10 @@ loaded with ``ctypes``. A wrapper given CPU tensors runs the kernel's
 plain PyTorch version from :mod:`.paircount` instead; on a CUDA tensor it
 launches the kernel or raises (kernel C's wrapper takes CUDA tensors only:
 :func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags` picks the
-plain version for the CPU). Each launch adds one to the variant's entry
-of :data:`launch_counts` (kernel C's three launches, one each of
-:data:`FLAG_KERNELS`).
+plain version for the CPU). Each launch adds one to the counter
+``engine.launches.<variant>`` of
+:mod:`~yet_another_wizz_tpu_torch.utils.tracing` (kernel C's three
+launches, one each of :data:`FLAG_KERNELS`).
 """
 
 from __future__ import annotations
@@ -95,12 +96,14 @@ from yet_another_wizz_tpu_torch.utils.misc import (
     build_directory,
     build_shared_library,
 )
+from yet_another_wizz_tpu_torch.utils.tracing import count
 
 if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.ops.linkage import TilePairs
     from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 __all__ = [
+    "LAUNCHES",
     "SOURCE",
     "boundary_flags_cuda",
     "build",
@@ -108,10 +111,8 @@ __all__ = [
     "decode_work_items",
     "flag_reach_cuda",
     "flag_triage_cuda",
-    "launch_counts",
     "paircount_partials",
     "prepare_lanes",
-    "reset_launch_counts",
     "segment_sum",
     "variant_name",
 ]
@@ -140,12 +141,16 @@ _SHARED_MEMORY_EXCEEDED = -1
 block may have."""
 
 FLAG_KERNELS = ("boundary_flags_reach", "boundary_flags_triage", "boundary_flags")
-"""The :data:`launch_counts` keys of kernel C's launches C0 (reach), C1
-(triage) and C2 (evaluation), in launch order."""
+"""The launch counters' variant names (``engine.launches.<name>``) of
+kernel C's launches C0 (reach), C1 (triage) and C2 (evaluation), in launch
+order."""
+
+LAUNCHES = "engine.launches."
+"""The prefix of the launch counters' names; the variant follows."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
-    """The :data:`launch_counts` key of a kernel-A variant."""
+    """The launch counter's variant name of a kernel-A variant."""
     if direct is None:
         name = "paircount_partials"
     else:
@@ -159,29 +164,8 @@ def _mode(direct: tuple | None) -> int:
     return 1 if len(direct) > 3 and direct[3] else 2
 
 
-launch_counts = {
-    name: 0
-    for name in (
-        "paircount_partials",
-        "paircount_partials_binned",
-        "paircount_partials_direct",
-        "paircount_partials_direct_binned",
-        "paircount_partials_arcsine",
-        "paircount_partials_arcsine_binned",
-        "paircount_segment_sum",
-        *FLAG_KERNELS,
-    )
-}
-"""Kernel launches in this process, by kernel variant."""
-
 _libs: dict[int, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    """Set every launch count to zero."""
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def _load(path: Path, mode: int) -> ctypes.CDLL:
@@ -428,7 +412,7 @@ def paircount_partials(
                     "block of this card has"
                 )
             _raise_on_error(status, name)
-            launch_counts[name] += 1
+            count(LAUNCHES + name)
     return partial
 
 
@@ -466,7 +450,7 @@ def segment_sum(
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on_error(status, "segment_sum")
-        launch_counts["paircount_segment_sum"] += 1
+        count(LAUNCHES + "paircount_segment_sum")
     return out
 
 
@@ -559,7 +543,7 @@ def boundary_flags_cuda(
             )
             _raise_on_error(status, "boundary_flags")
             for name in FLAG_KERNELS:
-                launch_counts[name] += 1
+                count(LAUNCHES + name)
     return flags
 
 
@@ -592,7 +576,7 @@ def flag_reach_cuda(
             torch.cuda.current_stream(lanes1.device).cuda_stream,
         )
         _raise_on_error(status, "boundary_flags_reach")
-        launch_counts["boundary_flags_reach"] += 1
+        count(LAUNCHES + "boundary_flags_reach")
     return workspace[reach // 4 :].view(torch.float32).view(len(lanes1), chunks)
 
 
@@ -630,7 +614,7 @@ def flag_triage_cuda(
             torch.cuda.current_stream(lanes1.device).cuda_stream,
         )
         _raise_on_error(status, "boundary_flags_triage")
-        launch_counts["boundary_flags_triage"] += 1
+        count(LAUNCHES + "boundary_flags_triage")
     return workspace[2 : 2 + 2 * num_pairs * chunks * runs].view(-1, 2), workspace[:1]
 
 
@@ -676,8 +660,11 @@ def _pair_index(pairs: TilePairs, device: torch.device) -> _PairIndex:
     key = ("pair_index", device)
     index = pairs._device_cache.get(key)
     if index is None:
+        count("cache.miss.pair_index")
         index = _PairIndex(pairs, device)
         pairs._device_cache[key] = index
+    else:
+        count("cache.hit.pair_index")
     return index
 
 
@@ -692,13 +679,18 @@ def count_pairs_cuda(
 ) -> torch.Tensor:
     """``(num_slots, B, E)`` float32 cumulative counts per patch-pair slot
     of a slot-sorted tile-pair list: kernel A, then kernel B, queued on the
-    current stream (or their plain versions for CPU tensors)."""
+    current stream (or their plain versions for CPU tensors). Adds the
+    list's tile pairs and candidate pairs to the counters
+    ``engine.tile_pairs`` and ``engine.candidate_pairs``."""
     if len(pairs.tile1) and (
         int(pairs.tile1.max()) >= len(lanes1)
         or int(pairs.tile2.max()) >= len(lanes2)
     ):
         raise ValueError("tile-pair list indexes past the tile sets")
     index = _pair_index(pairs, lanes1.device)
+    num_pairs = int(pairs.num_pairs)
+    count("engine.tile_pairs", num_pairs)
+    count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
     partial = paircount_partials(
         lanes1, lanes2, index.tile1, index.tile2, chord2_table,
         cols_binned=cols_binned, direct=direct,

@@ -23,6 +23,8 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from yet_another_wizz_tpu_torch.utils.tracing import count
+
 if TYPE_CHECKING:
     from numpy.typing import NDArray
 
@@ -225,8 +227,11 @@ def build_tile_pairs(
     pairs — reuse one :class:`TilePairs` object, which in turn lets the
     engines reuse its device-resident index upload
     (``TilePairs._device_cache``). Set ``YAWT_PAIR_MEMO=0`` to disable.
+    Each call counts a hit or a miss of the memo (``cache.hit.pairs``,
+    ``cache.miss.pairs``).
     """
     if not _pair_memo_enabled():
+        count("cache.miss.pairs")
         return _build_tile_pairs(
             tiles1, tiles2, linkage, auto=auto, bin_max_angles=bin_max_angles
         )
@@ -252,8 +257,10 @@ def build_tile_pairs(
         hit = memo.get(key)
         if hit is not None:
             memo.move_to_end(key)
+            count("cache.hit.pairs")
             return hit
 
+    count("cache.miss.pairs")
     result = _build_tile_pairs(
         tiles1, tiles2, linkage, auto=auto, bin_max_angles=bin_max_angles
     )

@@ -37,9 +37,9 @@ patch-pair slots are recounted in float64 by the oracle.
 
 from __future__ import annotations
 
+import collections
 import functools
 import logging
-import time
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -55,6 +55,7 @@ from yet_another_wizz_tpu_torch.ops.tiles import (
     CHANNEL_ZBIN,
     CHUNK_SIZE,
 )
+from yet_another_wizz_tpu_torch.utils.tracing import count, span
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -360,8 +361,13 @@ def count_pairs_torch(
     chunk_size: int = DEFAULT_CHUNK_SIZE,
 ) -> torch.Tensor:
     """The plain PyTorch engine: ``(num_slots, B, E)`` float32 cumulative
-    counts per patch-pair slot, on the device of the lanes."""
+    counts per patch-pair slot, on the device of the lanes. Counts as
+    :func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`
+    does (``engine.tile_pairs``, ``engine.candidate_pairs``)."""
     device = lanes1.device
+    num_pairs = int(pairs.num_pairs)
+    count("engine.tile_pairs", num_pairs)
+    count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
     tile1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
     tile2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
     slot = torch.from_numpy(np.asarray(pairs.slot, np.int64)).to(device)
@@ -386,14 +392,16 @@ AUDIT_CHUNK_SIZE = 64
 a few ``(64, T, T)`` temporaries, 64 MiB each in float32 at T = 512. The
 JAX package batches 16."""
 
-AUDIT_STATS: list[dict] = []
-"""One record per call of :func:`audit_boundary_counts` in this process
-(diagnostic; cleared by :func:`reset_audit_stats`): ``tile_pairs``,
-``slots``, ``flagged_slots`` (int64 array of the recounted slot indices),
-``flag_seconds`` (host seconds of the flag pass, its copy to the host
-included), ``flag_ms`` (the flag pass on the card from CUDA events, None
-off the card), ``recount_seconds`` (the float64 recount) and
-``recount_workers``."""
+AUDIT_STATS_KEPT = 1024
+"""Records :data:`AUDIT_STATS` keeps: the newest ones."""
+
+AUDIT_STATS: collections.deque[dict] = collections.deque(maxlen=AUDIT_STATS_KEPT)
+"""One record per call of :func:`audit_boundary_counts` in this process,
+the newest :data:`AUDIT_STATS_KEPT` (diagnostic; cleared by
+:func:`reset_audit_stats`): ``flagged_slots`` (int64 array of the
+recounted slot indices) and ``recount_workers``. The flag pass and the
+recount are the spans ``audit.flag`` and ``audit.recount``
+(:mod:`~yet_another_wizz_tpu_torch.utils.tracing`)."""
 
 
 def reset_audit_stats() -> None:
@@ -588,18 +596,10 @@ def audit_boundary_counts(
         np.ascontiguousarray(chord2_table, np.float32)
     ).to(device)
 
-    on_card = device.type == "cuda"
-    if on_card:
-        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record(torch.cuda.current_stream(device))
-    t0 = time.perf_counter()
-    flags = _flag_pass(tiles1, tiles2, pairs, table, band_table, device, chunk_size)
-    flag_ms = None
-    if on_card:
-        stop.record(torch.cuda.current_stream(device))
-        stop.synchronize()
-        flag_ms = start.elapsed_time(stop)
-    t1 = time.perf_counter()
+    with span("audit.flag"):
+        flags = _flag_pass(
+            tiles1, tiles2, pairs, table, band_table, device, chunk_size
+        )
 
     flagged_slots = np.unique(np.asarray(pairs.slot)[flags])
     workers = 0
@@ -612,7 +612,8 @@ def audit_boundary_counts(
             np.asarray(edges_radian, dtype=np.float64),
         )
         workers = min(host_thread_count(default=1), len(flagged_slots))
-        oracle = count_pairs_oracle(*args, max_workers=workers)
+        with span("audit.recount"):
+            oracle = count_pairs_oracle(*args, max_workers=workers)
         counts = np.array(counts, dtype=np.float64, copy=True)
         counts[flagged_slots] = oracle
         logger.info(
@@ -620,10 +621,7 @@ def audit_boundary_counts(
             len(flagged_slots),
         )
     AUDIT_STATS.append(dict(
-        tile_pairs=int(pairs.num_pairs), slots=int(pairs.num_slots),
-        flagged_slots=flagged_slots.astype(np.int64), flag_seconds=t1 - t0,
-        flag_ms=flag_ms, recount_seconds=time.perf_counter() - t1,
-        recount_workers=workers,
+        flagged_slots=flagged_slots.astype(np.int64), recount_workers=workers,
     ))
     return counts, int(len(flagged_slots))
 
@@ -659,6 +657,7 @@ def _device_table(
     """A float32 threshold table on ``device``, uploaded once per content:
     repeated counts with one configuration share the tensor, and with it
     the kernels' entry layout derived from it. Callers do not modify it."""
+    count("cache.miss.table")
     table = np.frombuffer(data, np.float32).reshape(shape)
     return torch.from_numpy(table.copy()).to(device)
 
@@ -763,7 +762,10 @@ def count_pairs_tiles(
             f"backend 'cuda' needs a CUDA device, got device '{device}'"
         )
     table = np.ascontiguousarray(chord2_table, np.float32)
+    misses = _device_table.cache_info().misses
     table = _device_table(table.tobytes(), table.shape, device)
+    if _device_table.cache_info().misses == misses:
+        count("cache.hit.table")
     lanes1 = tiles1.device_data(device)
     lanes2 = tiles2.device_data(device)
     if backend == "torch":

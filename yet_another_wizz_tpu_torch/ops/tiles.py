@@ -40,6 +40,7 @@ import torch
 
 from yet_another_wizz_tpu_torch import _native
 from yet_another_wizz_tpu_torch.coordinates import chord_to_angle
+from yet_another_wizz_tpu_torch.utils.tracing import count
 
 if TYPE_CHECKING:
     from numpy.typing import NDArray
@@ -313,13 +314,15 @@ class TileSet:
         stream makes that stream wait for the copy and marks the lanes as
         used by it (``record_stream``), so their memory is not reused while
         kernels queued there still read them, whenever the tile set drops
-        them."""
+        them. Each call counts a hit or a miss of the cache
+        (``cache.hit.lanes``, ``cache.miss.lanes``)."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         key = device if shard is None else (device, *shard)
         with self._upload_lock:
             upload = self._device_lanes.get(key)
+            count("cache.miss.lanes" if upload is None else "cache.hit.lanes")
             if upload is None:
                 lanes = self.lane_data
                 if shard is not None:

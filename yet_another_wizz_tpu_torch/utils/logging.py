@@ -10,7 +10,9 @@ reporting the version and the torch devices.
 
 :func:`profile_trace` wraps a code region in a ``torch.profiler`` trace
 (CPU activity, plus CUDA activity when a card is present) and exports it
-as a Chrome trace.
+as a Chrome trace; the port's spans
+(:mod:`~yet_another_wizz_tpu_torch.utils.tracing`) lie in it as ``yawt/``
+ranges.
 """
 
 from __future__ import annotations
@@ -238,8 +240,9 @@ def profile_trace(log_dir: Path | str):
     """Capture a ``torch.profiler`` trace of the wrapped region and export
     it as a Chrome trace, ``<log_dir>/trace.json`` (view it in Perfetto or
     ``chrome://tracing``). It records CPU activity, and CUDA activity when
-    a card is present. The profiler is yielded, so a caller can read its
-    ``key_averages()``."""
+    a card is present, and the port's spans (``yawt/<stage>`` ranges, see
+    :mod:`~yet_another_wizz_tpu_torch.utils.tracing`). The profiler is
+    yielded, so a caller can read its ``key_averages()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
