@@ -268,6 +268,7 @@ class Catalog(Mapping):
         "_chunk",
         "_xyz",
         "_patch_ids",
+        "_num_records",
         "patch_centers_xyz",
         "patch_radii",
         "num_patches",
@@ -304,6 +305,7 @@ class Catalog(Mapping):
         self._patch_ids = np.repeat(
             np.arange(len(chunks), dtype=np.int32), [len(c) for c in chunks]
         )
+        self._num_records = tuple(len(c) for c in chunks)
         self.num_patches = len(patch_dirs)
         self._xyz = radec_to_xyz(self._chunk["ra"], self._chunk["dec"])
         # the meta.yml files record the centers the points were ASSIGNED
@@ -344,6 +346,9 @@ class Catalog(Mapping):
         new._chunk = chunk
         new._patch_ids = np.asarray(patch_ids, dtype=np.int32)
         new.num_patches = num_patches
+        new._num_records = tuple(
+            int(c) for c in np.bincount(new._patch_ids, minlength=num_patches)
+        )
         new._xyz = radec_to_xyz(chunk["ra"], chunk["dec"])
         new._init_patch_geometry(centers_xyz=centers_xyz)
         new._tile_cache = {}
@@ -406,6 +411,7 @@ class Catalog(Mapping):
         if np.any(counts == 0):
             empty = np.nonzero(counts == 0)[0].tolist()
             raise ValueError(f"patches with no data: {empty}")
+        new._num_records = tuple(int(c) for c in counts)
 
         new._init_patch_geometry(centers_xyz=centers_xyz)
 
@@ -806,9 +812,9 @@ class Catalog(Mapping):
         return self._xyz
 
     def get_num_records(self) -> tuple[int, ...]:
-        """Number of points per patch."""
-        counts = np.bincount(self._patch_ids, minlength=self.num_patches)
-        return tuple(int(c) for c in counts)
+        """Number of points per patch (counted once, when the catalog was
+        built)."""
+        return self._num_records
 
     def get_sum_weights(self) -> tuple[float, ...]:
         """Sum of weights per patch."""

@@ -20,7 +20,8 @@ post-processes the previous one.
 While a torch profiler records, the stages are spans
 (:mod:`~yet_another_wizz_tpu_torch.utils.tracing`): the call itself
 (``crosscorrelate``, ``autocorrelate`` and the scalar variants), the patch
-linkage and edge tables (``linkage``), and per count type
+linkage and edge tables (``linkage``; the tables are kept per
+configuration value, :func:`_angular_edges`), and per count type
 ``count.<dd|dr|rd|rr>``, once while the count is queued (the tile lookup
 ``tiles``, the pair list ``pairs``, ``engine.queue`` from the threshold
 table to the queued copy of the result) and once while it is finished
@@ -49,6 +50,8 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
+from collections import OrderedDict
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -68,6 +71,13 @@ from yet_another_wizz_tpu_torch.correlation.paircounts import (
     PatchedCounts,
     PatchedSumWeights,
 )
+from yet_another_wizz_tpu_torch.cosmology import (
+    AngularScales,
+    ComovingScales,
+    FLRWCosmology,
+    PhysicalScales,
+    get_default_cosmology,
+)
 from yet_another_wizz_tpu_torch.ops.linkage import (
     Linkage,
     build_linkage,
@@ -82,7 +92,7 @@ from yet_another_wizz_tpu_torch.ops.thresholds import (
     build_angular_edges,
 )
 from yet_another_wizz_tpu_torch.ops.tiles import preferred_tile_layout
-from yet_another_wizz_tpu_torch.utils.tracing import span, spanned
+from yet_another_wizz_tpu_torch.utils.tracing import count, span, spanned
 
 if TYPE_CHECKING:
     from collections.abc import Callable
@@ -105,6 +115,90 @@ logger = logging.getLogger(__name__)
 LINKAGE_SLACK = 1.0 + 1e-9
 """Relative slack on the linkage cutoff so pairs exactly at the maximum
 angular scale are never pruned."""
+
+
+_EDGES_MEMO_SIZE = 8
+"""Capacity of the edge-table memo: a pipeline measures many samples with
+one configuration, so a handful of distinct configurations cover it."""
+
+_edges_memo: OrderedDict[tuple, AngularEdges] = OrderedDict()
+_edges_memo_lock = threading.Lock()
+
+_VALUE_SCALES = (AngularScales, PhysicalScales, ComovingScales)
+
+
+def _edges_key(config: Configuration) -> tuple | None:
+    """The values that determine ``config``'s edge tables, or None where
+    the scales or the cosmology are of a user's class, whose values cannot
+    be read."""
+    scales = config.scales.scales
+    cosmology = config.cosmology or get_default_cosmology()
+    if type(scales) not in _VALUE_SCALES or type(cosmology) is not FLRWCosmology:
+        return None
+    return (
+        type(scales).__name__,
+        str(scales.unit),
+        scales.scale_min.tobytes(),
+        scales.scale_max.tobytes(),
+        np.asarray(config.binning.binning.mids, np.float64).tobytes(),
+        config.scales.rweight,
+        config.scales.resolution,
+        getattr(config.scales, "counting", "auto"),
+        cosmology.H0,
+        cosmology.Om0,
+        cosmology.Ode0,
+        cosmology.Ok0,
+        cosmology.Tcmb0,
+        cosmology.Neff,
+        cosmology.m_nu.tobytes(),
+    )
+
+
+def _freeze(edges: AngularEdges) -> None:
+    """Make the tables of ``edges`` read-only: a memo entry is shared."""
+    for table in (edges, edges.direct):
+        if table is None:
+            continue
+        for name in ("chord2_table", "edges", "scale_maps", "gtable"):
+            array = getattr(table, name, None)
+            if array is not None:
+                array.setflags(write=False)
+
+
+def _angular_edges(config: Configuration) -> AngularEdges:
+    """The angular edge tables of ``config``
+    (:func:`~yet_another_wizz_tpu_torch.ops.thresholds.build_angular_edges`
+    at the bin centers), built once per configuration value and kept in a
+    small LRU memo with read-only arrays; a configuration rebuilt from the
+    same values finds them. Scales or a cosmology of a user's class build
+    them on every call. Each call counts a hit or a miss of the memo
+    (``cache.hit.edges``, ``cache.miss.edges``)."""
+    key = _edges_key(config)
+    with _edges_memo_lock:
+        edges = _edges_memo.get(key)  # None, the key of no value, finds nothing
+        if edges is not None:
+            _edges_memo.move_to_end(key)
+    if edges is not None:
+        count("cache.hit.edges")
+        return edges
+
+    count("cache.miss.edges")
+    edges = build_angular_edges(
+        config.scales.scales,
+        config.binning.binning.mids,
+        config.cosmology,
+        weight_scale=config.scales.rweight,
+        weight_res=config.scales.resolution,
+        counting=getattr(config.scales, "counting", "auto"),
+    )
+    if key is not None:
+        _freeze(edges)
+        with _edges_memo_lock:
+            _edges_memo[key] = edges
+            _edges_memo.move_to_end(key)
+            while len(_edges_memo) > _EDGES_MEMO_SIZE:
+                _edges_memo.popitem(last=False)
+    return edges
 
 
 @contextlib.contextmanager
@@ -222,17 +316,11 @@ class PatchLinkage:
         catalog: Catalog,
         *catalogs: Catalog,
     ) -> PatchLinkage:
-        """Build the linkage: angular edge tables at the bin centers, patch
-        geometry from the best-constrained (largest) catalog, and the cap
-        cutoff at the largest angular scale."""
-        edges = build_angular_edges(
-            config.scales.scales,
-            config.binning.binning.mids,
-            config.cosmology,
-            weight_scale=config.scales.rweight,
-            weight_res=config.scales.resolution,
-            counting=getattr(config.scales, "counting", "auto"),
-        )
+        """Build the linkage: angular edge tables at the bin centers (kept
+        per configuration value, :func:`_angular_edges`), patch geometry
+        from the best-constrained (largest) catalog, and the cap cutoff at
+        the largest angular scale."""
+        edges = _angular_edges(config)
         logger.debug(
             "computing patch linkage with max. separation of %.2e rad",
             edges.max_angle,

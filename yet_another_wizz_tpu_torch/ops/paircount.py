@@ -592,9 +592,9 @@ def audit_boundary_counts(
     device = resolve_device(device)
     band = audit_band(edges_radian, chord2_table, rel_band)
     band_table = torch.from_numpy(band.astype(np.float32)).to(device)
-    table = torch.from_numpy(
-        np.ascontiguousarray(chord2_table, np.float32)
-    ).to(device)
+    table = torch.tensor(
+        np.asarray(chord2_table, np.float32), device=device
+    )
 
     with span("audit.flag"):
         flags = _flag_pass(

@@ -16,8 +16,8 @@ Counters count always: :data:`counters` is one process-wide dict, and
 ``engine.launches.<kernel variant>``, ``engine.tile_pairs``,
 ``engine.candidate_pairs`` (tile pairs times the product of the two tile
 sizes), ``cache.hit.<kind>`` and ``cache.miss.<kind>`` of the caches a
-repeated measurement reuses (``tiles``, ``pairs``, ``pair_index``,
-``table``, ``lanes``, ``store``), and the blocked path's
+repeated measurement reuses (``edges``, ``tiles``, ``pairs``,
+``pair_index``, ``table``, ``lanes``, ``store``), and the blocked path's
 ``blocked.block_pairs``, ``blocked.upload_bytes`` and ``blocked.upload_s``.
 """
 
