@@ -5,23 +5,28 @@ NVIDIA card.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 scripts/torch_cumulative_variants.py --parent OLD.cu [--kernel flags]
+    python3 scripts/torch_cumulative_variants.py --parent OLD.cu \
+        [--variant NAME=OTHER.cu ...] [--kernel flags]
 
-It builds ``yet_another_wizz_tpu_torch/csrc/paircount.cu`` and ``OLD.cu``
-in cumulative mode, one ``nvcc`` each, together. A library that exports
-``yawt_paircount_chunk`` has the current C interface: it is loaded with
-``cuda_paircount._load`` and driven through
-``cuda_paircount.paircount_partials``. One without it has the interface
-from before the chunk skip, which takes no chunk caps, and is bound as
-such. On the inputs of ``chip_smoke.py`` (the JAX package's benchmark
-size) it checks each build against the plain PyTorch version on the
-first 512 tile pairs, checks that both builds give the same partials bit
-for bit on the full lists, with real and with unit weights (a skipped
-pair adds +0, and each row still sums its columns in order), and times
-both on the full headline DD and RD lists (K1.1) and the w_ss DD list
-(K1.2) with CUDA events, in turns (parent, shipped, shipped, parent). It
-prints the card's name and power limit and each build's ptxas summary; it
-exits non-zero on any disagreement.
+It builds ``yet_another_wizz_tpu_torch/csrc/paircount.cu`` ("shipped"),
+``OLD.cu`` ("parent") and each ``--variant`` in cumulative mode, one
+``nvcc`` each, together. A library that exports ``yawt_kept_total_bytes``
+has the current C interface, whose kernel adds the chunk blocks it keeps
+to a total unless the total's pointer is null: it runs twice, once
+counting into a total of its own (``NAME``) and once with the null
+pointer (``NAME-null``), which splits the count's cost from the rest of
+the source. One that exports ``yawt_paircount_chunk`` alone has the
+interface from before that count, with chunk caps and no total; one
+without either has the interface from before the chunk skip, which takes
+no chunk caps. Both are bound as such. On the inputs of ``chip_smoke.py``
+(the JAX package's benchmark size) it checks each run against the plain
+PyTorch version on the first 512 tile pairs, checks that every run gives
+the parent's partials bit for bit on the full lists, with real and with
+unit weights (a skipped pair adds +0, and each row still sums its columns
+in order), and times every run on the full headline DD and RD lists (K1.1)
+and the w_ss DD list (K1.2) with CUDA events, in turns (forwards, then
+backwards). It prints the card's name and power limit and each build's
+ptxas summary; it exits non-zero on any disagreement.
 
 With ``--kernel flags`` it times kernel C instead. A library that exports
 ``yawt_flag_reach`` has the current flag interface (reach, triage and
@@ -82,27 +87,83 @@ def build(name: str, source: Path) -> tuple[Path, str]:
     return target, log
 
 
-def launcher(target: Path):
-    """``run(lanes1, lanes2, tile1, tile2, table, cols_binned)`` through the
-    library's C interface: the current one, or the one before the chunk
-    skip."""
+def launcher(name: str, target: Path) -> dict:
+    """``{name: run}``, ``run(lanes1, lanes2, tile1, tile2, table,
+    cols_binned)`` through the library's C interface: the current one (two
+    runs, counting the kept blocks and with the null pointer), the one
+    before the kept-block total, or the one before the chunk skip."""
     import torch
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
 
-    if hasattr(ctypes.CDLL(str(target)), "yawt_paircount_chunk"):
+    raw = ctypes.CDLL(str(target))
+    if hasattr(raw, "yawt_kept_total_bytes"):
         lib = cuda_paircount._load(target, 0)
+        total = torch.zeros(1, dtype=torch.int64, device="cuda")
 
-        def run(lanes1, lanes2, tile1, tile2, table, cols_binned):
-            cuda_paircount._libs[0] = lib
-            return cuda_paircount.paircount_partials(
-                lanes1, lanes2, tile1, tile2, table, cols_binned=cols_binned
-            )
+        def current(counted: bool):
+            def run(lanes1, lanes2, tile1, tile2, table, cols_binned):
+                num_bins, num_edges = table.shape
+                out = torch.empty(
+                    (len(tile1), num_bins, num_edges), dtype=torch.float32,
+                    device=lanes1.device,
+                )
+                stream = torch.cuda.current_stream().cuda_stream
+                for edge0 in range(
+                    0, num_edges, cuda_paircount.MAX_EDGES_PER_LAUNCH
+                ):
+                    status = lib.yawt_paircount_partials(
+                        lanes1.data_ptr(), lanes2.data_ptr(),
+                        cuda_paircount._device_caps(lanes1).data_ptr(),
+                        cuda_paircount._device_caps(lanes2).data_ptr(),
+                        tile1.data_ptr(), tile2.data_ptr(), len(tile1),
+                        table.data_ptr(), num_bins, num_edges, num_edges, edge0,
+                        min(cuda_paircount.MAX_EDGES_PER_LAUNCH,
+                            num_edges - edge0),
+                        lanes1.shape[2], int(cols_binned), 0, None, 0,
+                        out.data_ptr(), total.data_ptr() if counted else None,
+                        stream,
+                    )
+                    chip_smoke.check(
+                        status == 0, f"launch failed with CUDA error {status}"
+                    )
+                return out
 
-        return run
+            return run
+
+        return {name: current(True), f"{name}-null": current(False)}
 
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = ctypes.CDLL(str(target)).yawt_paircount_partials
+    if hasattr(raw, "yawt_paircount_chunk"):
+        with_caps = raw.yawt_paircount_partials
+        with_caps.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr] + [
+            i32] * 8 + [ptr, i32, ptr, ptr]
+        with_caps.restype = i32
+
+        def run_without_total(lanes1, lanes2, tile1, tile2, table, cols_binned):
+            num_bins, num_edges = table.shape
+            out = torch.empty(
+                (len(tile1), num_bins, num_edges), dtype=torch.float32,
+                device=lanes1.device,
+            )
+            stream = torch.cuda.current_stream().cuda_stream
+            for edge0 in range(0, num_edges, cuda_paircount.MAX_EDGES_PER_LAUNCH):
+                status = with_caps(
+                    lanes1.data_ptr(), lanes2.data_ptr(),
+                    cuda_paircount._device_caps(lanes1).data_ptr(),
+                    cuda_paircount._device_caps(lanes2).data_ptr(),
+                    tile1.data_ptr(), tile2.data_ptr(), len(tile1),
+                    table.data_ptr(), num_bins, num_edges, num_edges, edge0,
+                    min(cuda_paircount.MAX_EDGES_PER_LAUNCH, num_edges - edge0),
+                    lanes1.shape[2], int(cols_binned), 0, None, 0,
+                    out.data_ptr(), stream,
+                )
+                chip_smoke.check(status == 0, f"launch failed with CUDA error {status}")
+            return out
+
+        return {name: run_without_total}
+
+    fn = raw.yawt_paircount_partials
     fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr] + [i32] * 8 + [
         ptr, i32, ptr, ptr,
     ]
@@ -124,7 +185,7 @@ def launcher(target: Path):
         chip_smoke.check(status == 0, f"launch failed with CUDA error {status}")
         return out
 
-    return run_without_caps
+    return {name: run_without_caps}
 
 
 def flag_launcher(target: Path):
@@ -136,8 +197,13 @@ def flag_launcher(target: Path):
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
 
-    if hasattr(ctypes.CDLL(str(target)), "yawt_flag_reach"):
-        lib = cuda_paircount._load(target, 0)
+    raw = ctypes.CDLL(str(target))
+    if hasattr(raw, "yawt_flag_reach"):
+        if hasattr(raw, "yawt_kept_total_bytes"):
+            lib = cuda_paircount._load(target, 0)
+        else:  # the flag kernel of a source from before the kept-block total
+            lib = raw
+            cuda_paircount._bind_flags(lib)
 
         def run(lanes1, lanes2, tile1, tile2, table, band, cols_binned):
             cuda_paircount._libs[0] = lib
@@ -370,10 +436,16 @@ def main() -> None:
         "--parent", type=Path, required=True, help="an earlier paircount.cu"
     )
     parser.add_argument(
+        "--variant", action="append", default=[], metavar="NAME=PATH",
+        help="another paircount.cu to build and time (kernel A only)",
+    )
+    parser.add_argument(
         "--kernel", choices=("partials", "flags"), default="partials",
         help="kernel A's cumulative instances (default) or kernel C",
     )
     args = parser.parse_args()
+    if args.kernel == "flags" and args.variant:
+        parser.error("--variant times kernel A only")
     card = chip_smoke.environment()
 
     import torch
@@ -383,12 +455,19 @@ def main() -> None:
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
     from yet_another_wizz_tpu_torch.ops.paircount import partial_counts_torch
 
-    sources = {"parent": args.parent, "shipped": cuda_paircount.SOURCE}
+    sources = {"parent": args.parent}
+    for variant in args.variant:
+        name, _, path = variant.partition("=")
+        sources[name] = Path(path)
+    sources["shipped"] = cuda_paircount.SOURCE
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
         built = dict(zip(sources, pool.map(build, sources, sources.values())))
     runs = {}
     for name, (target, log) in built.items():
-        runs[name] = (flag_launcher if args.kernel == "flags" else launcher)(target)
+        if args.kernel == "flags":
+            runs[name] = flag_launcher(target)
+        else:
+            runs.update(launcher(name, target))
         for line in chip_smoke.ptxas_summary(log):
             chip_smoke.log(f"  {name} ptxas: {line}")
     if args.kernel == "flags":
@@ -418,17 +497,16 @@ def main() -> None:
             )
         units = (chip_smoke.unit_weights(lanes1), chip_smoke.unit_weights(lanes2))
         for label, (rows, cols) in (("real", (lanes1, lanes2)), ("unit", units)):
-            parent, shipped = (
-                run(rows, cols, tile1, tile2, table, binned)
-                for run in runs.values()
-            )
-            torch.cuda.synchronize()
-            chip_smoke.check(
-                torch.equal(parent, shipped),
-                f"{count} {label} weights: the shipped kernel differs from the "
-                "parent's",
-            )
-            del parent, shipped
+            parent = runs["parent"](rows, cols, tile1, tile2, table, binned)
+            for name, run in runs.items():
+                other = run(rows, cols, tile1, tile2, table, binned)
+                torch.cuda.synchronize()
+                chip_smoke.check(
+                    torch.equal(parent, other),
+                    f"{count} {label} weights: {name} differs from the parent",
+                )
+                del other
+            del parent
         times = {name: [] for name in runs}
         for name in [*runs, *reversed(runs)]:
             times[name].append(chip_smoke.cuda_ms(

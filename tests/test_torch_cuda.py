@@ -30,7 +30,12 @@ windows of host-gathered lanes; its reach and its work list equal their
 plain mirrors (``chunk_reach``, ``flag_work_items``); the audit repairs
 that pair's flip on the card, in memory and blocked, through the kernel.
 After ``Catalog.build_trees`` on the card, a measurement uploads no lanes,
-derives no chunk caps and builds no tile set.
+derives no chunk caps and builds no tile set. At the reach of the DES Y3
+source-bin cell (1.5-5 Mpc, 37 bins; ``torch_skip_counter_cases.py``) the
+chunk blocks the cumulative kernel counts as kept on the card
+(``engine.chunk_blocks_kept``, read with the counters) are the plain
+mirror's sum for a cross and a binned count, and the counted partials are
+the plain version's bit for bit.
 """
 
 import collections
@@ -40,6 +45,7 @@ import pytest
 import torch
 
 from torch_chunk_cases import band_inputs, edge_case_inputs, unit_weights
+from torch_skip_counter_cases import count_inputs
 from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
 from yet_another_wizz_tpu_torch.ops.linkage import (
@@ -49,6 +55,7 @@ from yet_another_wizz_tpu_torch.ops.linkage import (
 )
 from yet_another_wizz_tpu_torch.ops.paircount import (
     count_pairs_tiles,
+    kept_chunk_blocks,
     partial_counts_torch,
     segment_sum_torch,
 )
@@ -896,3 +903,46 @@ def test_measurement_after_build_trees_uploads_and_builds_nothing(device, monkey
         np.testing.assert_array_equal(
             getattr(warmed, name).counts.counts, getattr(expected, name).counts.counts
         )
+
+
+@pytest.mark.parametrize("kind", ["cross", "auto"])
+def test_kept_blocks_on_the_card_are_the_mirrors_sum(device, kind):
+    """The kept blocks the kernel counts on the card are the mirror's sum,
+    read with the counters, and the counted partials are the plain
+    version's, bit for bit (unit weights: real ones add in another order)."""
+    tiles1, tiles2, pairs, table, cols_binned = count_inputs(kind, device=device)
+    lanes1 = unit_weights(tiles1.device_data(device))
+    lanes2 = unit_weights(tiles2.device_data(device))
+    tile1 = torch.from_numpy(pairs.tile1).to(device)
+    tile2 = torch.from_numpy(pairs.tile2).to(device)
+    table = torch.tensor(np.asarray(table, np.float32), device=device)
+    mirror = kept_chunk_blocks(
+        lanes1, cuda_paircount._device_caps(lanes1),
+        cuda_paircount._device_caps(lanes2), tile1, tile2, table,
+        cols_binned=cols_binned,
+    )
+    tracing.reset()
+    (first, second), plain = cumulative_pair(
+        device, lanes1, lanes2, tile1, tile2, table, cols_binned
+    )
+    counted = tracing.snapshot()
+    assert 0 < mirror < pairs.num_pairs * 256
+    assert counted[cuda_paircount.KEPT_BLOCKS] == 2 * mirror
+    assert torch.equal(first, second)
+    assert plain.max() > 0
+    assert torch.equal(first, plain)
+
+    tracing.reset()
+    result = count_pairs_tiles(
+        tiles1, tiles2, pairs, table.cpu().numpy(), backend="cuda",
+        device=device,
+    )
+    counted = tracing.snapshot()
+    assert counted["engine.chunk_blocks"] == pairs.num_pairs * 256
+    assert counted[cuda_paircount.KEPT_BLOCKS] == kept_chunk_blocks(
+        tiles1.device_data(device),
+        cuda_paircount._device_caps(tiles1.device_data(device)),
+        cuda_paircount._device_caps(tiles2.device_data(device)),
+        tile1, tile2, table, cols_binned=cols_binned,
+    )
+    assert result.max() > 0

@@ -1,9 +1,10 @@
 """Patch assignment of the port takes its device from the caller.
 
 Above ``DEVICE_ASSIGN_THRESHOLD`` points x centers, ``assign_patches``
-runs a float32 matmul + argmax on the caller's device (default
-``"cuda"``); without a card that default raises instead of running on the
-CPU. Below the threshold the host path runs, as in the JAX package.
+scores the points in float64 on the caller's device (default ``"cuda"``),
+with the host path's operations, so both assign every point alike; without
+a card that default raises instead of running on the CPU. Below the
+threshold the host path runs, as in the JAX package.
 """
 
 import numpy as np
@@ -35,8 +36,11 @@ def test_device_assignment_on_cpu_matches_host(monkeypatch, points):
     host = kmeans.assign_patches(xyz, centers)
     monkeypatch.setattr(kmeans, "DEVICE_ASSIGN_THRESHOLD", 1)
     on_device = kmeans.assign_patches(xyz, centers, device="cpu", chunk=1000)
-    # float32 scores may break a float64 near-tie the other way
-    assert np.mean(on_device == host) > 0.999
+    assert_array_equal(on_device, host)
+    monkeypatch.setattr(kmeans, "DEVICE_SCORES", 100)  # steps within a chunk
+    assert_array_equal(
+        kmeans.assign_patches(xyz, centers, device="cpu", chunk=1000), host
+    )
 
 
 def test_device_assignment_defaults_to_cuda(monkeypatch, points, no_cuda):

@@ -61,6 +61,23 @@
 //            sum, which starts at +0;
 //        (4) the columns of a row are still added in ascending order, and
 //            the (B, E) row reduction and kernel B are unchanged.
+//        A warp tests its column chunks 32 at a time, one per lane, and
+//        ballots the decisions into a mask (warp-uniform, as each decision
+//        is), then walks the mask's set bits in ascending order through
+//        the pair loop, in which the caps and the reach are no longer
+//        live. The kept blocks are the mask's population count: lane 0
+//        adds it to the warp's word in shared memory, and after the rows
+//        thread 0 adds the block's words, once per block, to the 64-bit
+//        total kept_blocks (one per device, never reset; null: not
+//        counted). Counted inside the chunk loop, a register or a
+//        shared-memory add per kept block took K1.1 from 48 to 51 or 55
+//        registers, 5 to 4 blocks per SM and ~5 % of its time; the ballot
+//        instead of every lane running the warp's tests one after another
+//        took K1.1 to 40 registers and ~18 % off its time (PERF.md).
+//        The host reads the total when it reads its counters
+//        (ops/cuda_paircount.py: engine.chunk_blocks_kept; the host counts
+//        engine.chunk_blocks, tile pairs x (T / 32)^2 per launch, where it
+//        queues the launch). The adds touch no count.
 //      - paircount_direct_kernel (K1.3/K1.4): every pair that an edge
 //        counts needs its separation weight, log10(theta) -> sub-interval
 //        index -> weight, which costs more issue slots than the counting.
@@ -355,9 +372,11 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     const float* __restrict__ table,   // (B, W): E thresholds
     int num_bins, int table_width, int num_edges, int edge0, int num_group,
     int tile_size,
-    float* __restrict__ partial) {     // (P, B, E)
+    float* __restrict__ partial,       // (P, B, E)
+    unsigned long long* kept_blocks) { // the device's total, or null
   const int num_chunks = tile_size / kChunk;
   extern __shared__ float4 smem[];
+  __shared__ unsigned int kept_s[kThreads / kWarp];  // blocks kept per warp
   float4* col_a = smem;              // (T)
   float4* col_b = smem + tile_size;  // (T)
   float4* cap_s = smem + 2 * tile_size;  // (T / kChunk, 2) column caps
@@ -377,6 +396,7 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
   for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
     cap_s[i] = col_caps[i];
   }
+  if (threadIdx.x < kThreads / kWarp) kept_s[threadIdx.x] = 0;
   __syncthreads();
 
   for (int base = 0; base < tile_size; base += blockDim.x) {
@@ -416,32 +436,44 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     const float reach = largest < 0.0f ? -CUDART_INF_F
                                        : __fadd_rn(sqrtf(largest), row_cap.w);
 
-    for (int chunk = 0; chunk < num_chunks; ++chunk) {
-      bool keep = chunk_reaches(reach, row_cap, cap_s[2 * chunk]);
+    // the column chunks the warp keeps, as a mask per run of 32 chunks:
+    // lane c tests chunk chunk0 + c; a skipped chunk's pairs would add +-0
+    // ((1)-(3))
+    for (int chunk0 = 0; chunk0 < num_chunks; chunk0 += kWarp) {
+      const int tested = chunk0 + threadIdx.x % kWarp;
+      bool keep = tested < num_chunks &&
+                  chunk_reaches(reach, row_cap, cap_s[2 * tested]);
       if constexpr (COLS_BINNED) {
-        const float4 col_bins = cap_s[2 * chunk + 1];
+        const float4 col_bins = tested < num_chunks ? cap_s[2 * tested + 1]
+                                                    : row_bins;
         keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
       }
-      if (!keep) continue;  // (1)-(3): every pair of the chunk adds +-0
-      for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
-        const float4 a = col_a[j];
-        const float4 c = col_b[j];
-        // compensated difference: (hi1 - hi2) + (lo1 - lo2)
-        const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
-        const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
-        const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
-        float chord2 = __fmul_rn(dx, dx);
-        chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
-        chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
+      unsigned int kept = __ballot_sync(0xffffffffu, keep);
+      if (kept_blocks != nullptr && threadIdx.x % kWarp == 0) {
+        kept_s[threadIdx.x / kWarp] += __popc(kept);
+      }
+      for (; kept != 0u; kept &= kept - 1u) {  // ascending chunks ((4))
+        const int chunk = chunk0 + __ffs(kept) - 1;
+        for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
+          const float4 a = col_a[j];
+          const float4 c = col_b[j];
+          // compensated difference: (hi1 - hi2) + (lo1 - lo2)
+          const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
+          const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
+          const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
+          float chord2 = __fmul_rn(dx, dx);
+          chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
+          chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
 
-        float w = a.w;
-        if constexpr (COLS_BINNED) {
-          // exact compare of the float bin lanes
-          w = c.w == zr ? w : 0.0f;
-        }
+          float w = a.w;
+          if constexpr (COLS_BINNED) {
+            // exact compare of the float bin lanes
+            w = c.w == zr ? w : 0.0f;
+          }
 #pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          acc[e] = __fadd_rn(acc[e], chord2 <= thr[e] ? w : 0.0f);
+          for (int e = 0; e < NE; ++e) {
+            acc[e] = __fadd_rn(acc[e], chord2 <= thr[e] ? w : 0.0f);
+          }
         }
       }
     }
@@ -455,6 +487,11 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     }
   }
   __syncthreads();
+  if (kept_blocks != nullptr && threadIdx.x == 0) {
+    unsigned long long kept = 0;
+    for (int w = 0; w < kThreads / kWarp; ++w) kept += kept_s[w];
+    if (kept > 0) atomicAdd(kept_blocks, kept);
+  }
   reduce_rows<NE>(row_val, row_bin, tile_size, num_bins, num_edges, edge0,
                   num_group, k, partial);
 }
@@ -664,6 +701,7 @@ struct Launch {
   const int* layout;
   int num_entries;
   float* partial;
+  unsigned long long* kept_blocks;
   cudaStream_t stream;
 };
 
@@ -699,7 +737,7 @@ int launch_partials(const Launch& a) {
     kernel<<<blocks, kThreads, smem, a.stream>>>(
         a.lanes1, a.lanes2, a.caps1, a.caps2, a.tile1, a.tile2, a.table,
         a.num_bins, a.table_width, a.num_edges, a.edge0, a.num_group,
-        a.tile_size, a.partial);
+        a.tile_size, a.partial, a.kept_blocks);
   } else {
     smem += bins * a.num_sub * sizeof(int4) +
             static_cast<size_t>(a.num_entries) * sizeof(float2) +
@@ -1200,6 +1238,10 @@ int yawt_paircount_mode() { return YAWT_DIRECT; }
 // Points per chunk cap that yawt_paircount_partials reads (caps1 / caps2).
 int yawt_paircount_chunk() { return kChunk; }
 
+// Bytes of the kept-block total that yawt_paircount_partials adds to (an
+// unsigned 64-bit integer).
+int yawt_kept_total_bytes() { return sizeof(unsigned long long); }
+
 // One launch of kernel A for the counting edges [edge0, edge0 + num_group)
 // of a (num_bins, table_width) table whose first num_edges columns are
 // squared-chord thresholds and, in direct mode, whose remaining columns
@@ -1211,6 +1253,8 @@ int yawt_paircount_chunk() { return kChunk; }
 // int32 (num_bins, num_sub, 3) entry spans followed by the num_entries
 // (thr, g) float32 entries (ops/gweight.py::EntryLayout.packed); the
 // cumulative build ignores num_sub, layout and num_entries.
+// The cumulative build adds the 32 x 32 chunk blocks it evaluates to
+// *kept_blocks unless it is null; the direct builds ignore it.
 // 1 <= num_group <= 16. Returns cudaGetLastError() after the launch, the
 // error of raising the kernel's shared-memory limit, or -1 when the launch
 // needs more shared memory than one block may have (a tile, table or
@@ -1222,11 +1266,12 @@ int yawt_paircount_partials(const float* lanes1, const float* lanes2,
                             int num_bins, int table_width, int num_edges,
                             int edge0, int num_group, int tile_size,
                             int cols_binned, int num_sub, const int* layout,
-                            int num_entries, float* partial, void* stream) {
+                            int num_entries, float* partial,
+                            unsigned long long* kept_blocks, void* stream) {
   const Launch a{lanes1, lanes2, caps1, caps2, tile1, tile2, num_pairs, table,
                  num_bins, table_width, num_edges, edge0, num_group,
                  tile_size, num_sub, layout, num_entries, partial,
-                 static_cast<cudaStream_t>(stream)};
+                 kept_blocks, static_cast<cudaStream_t>(stream)};
   return cols_binned ? dispatch_edges<true>(a) : dispatch_edges<false>(a);
 }
 

@@ -26,7 +26,18 @@ rows' largest threshold or, with binned columns, in other bins; a skipped
 pair would have added +0, so the result is bit for bit the per-pair
 evaluation's
 (:func:`~yet_another_wizz_tpu_torch.ops.paircount.chunk_keep_mask` is the
-rule's plain mirror). Its direct instances take the base weight of a
+rule's plain mirror). A warp ballots its column chunks' tests into a mask
+first and counts the blocks it keeps as the mask's population count; each
+thread block adds its warps' counts once to a 64-bit total per device that
+is never reset (:func:`_kept_total`). The host reads the totals, after the
+work queued on the card, whenever it reads its counters
+(:func:`~yet_another_wizz_tpu_torch.utils.tracing.snapshot`,
+:func:`_pull_kept`), and adds what it has not seen yet to the counter
+``engine.chunk_blocks_kept``. :func:`count_pairs_cuda` counts the blocks
+the launches decide on, tile pairs times ``(T / 32)^2`` per launch, into
+``engine.chunk_blocks`` (on the CPU the plain mirror counts both,
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_chunk_blocks_plain`).
+The direct instances count no blocks. They take the base weight of a
 pair's (bin, sub-interval) from a table the block fills in shared memory with the same ``expf``, walk only the
 below/above entries of the pair's own sub-interval (grouped from the table
 itself by :func:`~yet_another_wizz_tpu_torch.ops.gweight.entry_layout`,
@@ -88,6 +99,9 @@ import torch
 from yet_another_wizz_tpu_torch.ops.gweight import counting_width, entry_layout
 from yet_another_wizz_tpu_torch.ops.paircount import (
     FLAG_ITEM_CHUNKS,
+    MAX_EDGES_PER_LAUNCH,
+    chunk_blocks,
+    count_chunk_blocks_plain,
     partial_counts_torch,
     segment_sum_torch,
 )
@@ -96,6 +110,7 @@ from yet_another_wizz_tpu_torch.utils.misc import (
     build_directory,
     build_shared_library,
 )
+from yet_another_wizz_tpu_torch.utils import tracing
 from yet_another_wizz_tpu_torch.utils.tracing import count
 
 if TYPE_CHECKING:
@@ -103,7 +118,9 @@ if TYPE_CHECKING:
     from yet_another_wizz_tpu_torch.ops.tiles import TileSet
 
 __all__ = [
+    "KEPT_BLOCKS",
     "LAUNCHES",
+    "MAX_EDGES_PER_LAUNCH",
     "SOURCE",
     "boundary_flags_cuda",
     "build",
@@ -131,11 +148,6 @@ MODES = ("cumulative", "direct", "arcsine")
 """Counting modes, one library each (``-DYAWT_DIRECT=0, 1, 2``): cumulative,
 direct with the small-angle index, direct with the arcsine index."""
 
-MAX_EDGES_PER_LAUNCH = 16
-"""Counting edges one launch of kernel A covers (its per-thread
-accumulators are sized at compile time); wider tables take one launch per
-group."""
-
 _SHARED_MEMORY_EXCEEDED = -1
 """Status of a kernel-A launch that needs more shared memory than one
 block may have."""
@@ -147,6 +159,9 @@ order."""
 
 LAUNCHES = "engine.launches."
 """The prefix of the launch counters' names; the variant follows."""
+
+KEPT_BLOCKS = "engine.chunk_blocks_kept"
+"""The counter of the chunk blocks the cumulative kernel kept."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
@@ -177,17 +192,30 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
     lib.yawt_paircount_chunk.restype = i32
     if lib.yawt_paircount_chunk() != CHUNK_SIZE:
         raise RuntimeError(f"{path} does not read chunks of {CHUNK_SIZE} points")
+    if not hasattr(lib, "yawt_kept_total_bytes"):
+        raise RuntimeError(f"{path} was built without the kept-block total")
+    lib.yawt_kept_total_bytes.restype = i32
+    if lib.yawt_kept_total_bytes() != 8:
+        raise RuntimeError(f"{path} does not keep a 64-bit kept-block total")
     lib.yawt_paircount_partials.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, ptr, i32, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, ptr, i32, ptr, ptr, ptr,
     ]
     lib.yawt_paircount_partials.restype = i32
     if mode == 0:
         lib.yawt_segment_sum.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
         lib.yawt_segment_sum.restype = i32
-    # a library of an earlier source without them runs kernels A and B only
-    # (scripts/torch_cumulative_variants.py binds its flag kernel itself)
-    if mode == 0 and hasattr(lib, "yawt_flag_item_chunks"):
+        _bind_flags(lib)
+    return lib
+
+
+def _bind_flags(lib: ctypes.CDLL) -> None:
+    """Bind kernel C's C interface, where the cumulative library has it (a
+    library of an earlier source without it runs kernels A and B only;
+    scripts/torch_cumulative_variants.py binds an earlier flag kernel
+    itself)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if hasattr(lib, "yawt_flag_item_chunks"):
         lib.yawt_flag_item_chunks.restype = i32
         if lib.yawt_flag_item_chunks() != FLAG_ITEM_CHUNKS:
             raise RuntimeError(
@@ -207,7 +235,6 @@ def _load(path: Path, mode: int) -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr,
         ]
         lib.yawt_flag_triage.restype = i32
-    return lib
 
 
 def build() -> str:
@@ -319,6 +346,44 @@ def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
     return caps
 
 
+_kept_lock = threading.Lock()
+_kept_totals: dict[torch.device, torch.Tensor] = {}
+"""Per device, the int64 total of the chunk blocks the cumulative kernel
+kept there (one zeroing per device and process; never reset)."""
+_kept_seen: dict[torch.device, int] = {}
+"""Per device, the total the host has read last: what it has counted."""
+
+
+def _kept_total(device: torch.device) -> torch.Tensor:
+    """The device's kept-block total that the cumulative kernel adds to."""
+    with _kept_lock:
+        total = _kept_totals.get(device)
+        if total is None:
+            total = torch.zeros(1, dtype=torch.int64, device=device)
+            _kept_totals[device] = total
+        return total
+
+
+def _pull_kept() -> None:
+    """Count what the cumulative kernel has kept on each device since the
+    last read (:data:`KEPT_BLOCKS`). Waits for the work queued on the
+    devices that have a total, so the blocks count together with the
+    launches that ``engine.chunk_blocks`` counted on the host; the counters'
+    readers call it (:func:`~yet_another_wizz_tpu_torch.utils.tracing.
+    pull_from`)."""
+    with _kept_lock:
+        for device, total in _kept_totals.items():
+            torch.cuda.synchronize(device)
+            now = int(total.item())
+            seen = _kept_seen.get(device, 0)
+            _kept_seen[device] = now
+            if now > seen:
+                count(KEPT_BLOCKS, now - seen)
+
+
+tracing.pull_from(_pull_kept)
+
+
 def prepare_lanes(tiles: TileSet, device: torch.device | str) -> torch.Tensor:
     """Upload the lanes of ``tiles`` to the CUDA ``device``
     (:meth:`~yet_another_wizz_tpu_torch.ops.tiles.TileSet.device_data`) and
@@ -348,8 +413,10 @@ def paircount_partials(
     small_angle)``, the ``(B, E + C)`` combined table of
     :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`.
     ``cols_binned`` counts a column only where its bin equals the row's.
-    In direct mode the kernel reads the table's entries as the layout of
-    :func:`_device_layout`, derived from this table. Launches on the
+    The cumulative kernel adds the chunk blocks it keeps to the device's
+    kept-block total. In direct mode the kernel reads
+    the table's entries as the layout of :func:`_device_layout`, derived
+    from this table. Launches on the
     current stream and does not synchronise (except to derive that layout
     on a table's first use); raises where the layout does not fit in a
     block's shared memory."""
@@ -375,10 +442,12 @@ def paircount_partials(
     num_pairs = len(tile1)
     num_bins, table_width = chord2_table.shape
     caps_ptrs, num_sub, num_entries, layout_ptr = (None, None), 0, 0, None
+    kept_ptr = None
     if direct is None:
         caps_ptrs = (
             _device_caps(lanes1).data_ptr(), _device_caps(lanes2).data_ptr()
         )
+        kept_ptr = _kept_total(device).data_ptr()
     else:
         num_sub = direct[0]
         layout = _device_layout(chord2_table, num_edges, direct)
@@ -402,7 +471,7 @@ def paircount_partials(
                 tile1.data_ptr(), tile2.data_ptr(), num_pairs,
                 chord2_table.data_ptr(), num_bins, table_width, num_edges,
                 edge0, num_group, tile_size, int(cols_binned), num_sub,
-                layout_ptr, num_entries, partial.data_ptr(), stream,
+                layout_ptr, num_entries, partial.data_ptr(), kept_ptr, stream,
             )
             if status == _SHARED_MEMORY_EXCEEDED:
                 raise ValueError(
@@ -681,7 +750,12 @@ def count_pairs_cuda(
     of a slot-sorted tile-pair list: kernel A, then kernel B, queued on the
     current stream (or their plain versions for CPU tensors). Adds the
     list's tile pairs and candidate pairs to the counters
-    ``engine.tile_pairs`` and ``engine.candidate_pairs``."""
+    ``engine.tile_pairs`` and ``engine.candidate_pairs`` and, counting
+    cumulatively, its launches' chunk blocks to ``engine.chunk_blocks``.
+    On the card the kernel counts the kept blocks, which the host reads
+    with its counters (:func:`_pull_kept`); on the CPU the plain mirror
+    counts them
+    (:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_chunk_blocks_plain`)."""
     if len(pairs.tile1) and (
         int(pairs.tile1.max()) >= len(lanes1)
         or int(pairs.tile2.max()) >= len(lanes2)
@@ -691,6 +765,14 @@ def count_pairs_cuda(
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
     count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
+    if direct is None and lanes1.device.type == "cpu":
+        count_chunk_blocks_plain(
+            lanes1, lanes2, index.tile1, index.tile2, chord2_table,
+            cols_binned=cols_binned, caps_of=_device_caps,
+        )
+    elif direct is None:
+        count("engine.chunk_blocks",
+              chunk_blocks(num_pairs, lanes1.shape[2], chord2_table.shape[1]))
     partial = paircount_partials(
         lanes1, lanes2, index.tile1, index.tile2, chord2_table,
         cols_binned=cols_binned, direct=direct,

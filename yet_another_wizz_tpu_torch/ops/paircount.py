@@ -54,10 +54,13 @@ from yet_another_wizz_tpu_torch.ops.tiles import (
     CHANNEL_WEIGHT,
     CHANNEL_ZBIN,
     CHUNK_SIZE,
+    chunk_caps,
 )
 from yet_another_wizz_tpu_torch.utils.tracing import count, span
 
 if TYPE_CHECKING:
+    from collections.abc import Callable
+
     from numpy.typing import NDArray
 
     from yet_another_wizz_tpu_torch.ops.linkage import TilePairs
@@ -68,15 +71,19 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "AUDIT_RESIDENT_BYTES",
     "AUDIT_STATS",
+    "MAX_EDGES_PER_LAUNCH",
     "audit_band",
     "audit_boundary_counts",
     "boundary_flags",
     "boundary_flags_torch",
+    "chunk_blocks",
     "chunk_keep_mask",
     "chunk_reach",
+    "count_chunk_blocks_plain",
     "count_pairs_tiles",
     "count_pairs_torch",
     "flag_work_items",
+    "kept_chunk_blocks",
     "pair_block_boundary",
     "pair_block_counts",
     "partial_counts_torch",
@@ -88,6 +95,14 @@ __all__ = [
 DEFAULT_CHUNK_SIZE = 8
 """Tile pairs per batch of the plain engine. Each batch holds a few
 ``(chunk, T, T)`` float32 temporaries (1 MiB per tile pair at T = 512)."""
+
+MAX_EDGES_PER_LAUNCH = 16
+"""Counting edges one launch of the CUDA pair-count kernel covers (its
+per-thread accumulators are sized at compile time); wider tables take one
+launch per group."""
+
+KEPT_BATCH = 4096
+"""Tile pairs per batch of :func:`kept_chunk_blocks`."""
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -293,6 +308,68 @@ def chunk_keep_mask(
     return keep
 
 
+def chunk_blocks(num_pairs: int, tile_size: int, num_edges: int) -> int:
+    """The 32 x 32 chunk blocks that the cumulative CUDA kernel's launches
+    over a list of ``num_pairs`` tile pairs decide on: ``(T / 32)^2`` per
+    tile pair and launch, one launch per group of
+    :data:`MAX_EDGES_PER_LAUNCH` of the ``num_edges`` counting edges."""
+    launches = -(-num_edges // MAX_EDGES_PER_LAUNCH)
+    return launches * num_pairs * (tile_size // CHUNK_SIZE) ** 2
+
+
+def kept_chunk_blocks(
+    lanes1: torch.Tensor,
+    caps1: torch.Tensor,
+    caps2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+) -> int:
+    """Of :func:`chunk_blocks`, those the chunk skip keeps: the sum of
+    :func:`chunk_keep_mask` over the launches' groups of edges, in batches
+    of :data:`KEPT_BATCH` tile pairs. What the cumulative kernel adds to
+    ``engine.chunk_blocks_kept`` for the same launches."""
+    kept = 0
+    for edge0 in range(0, chord2_table.shape[1], MAX_EDGES_PER_LAUNCH):
+        table = chord2_table[:, edge0 : edge0 + MAX_EDGES_PER_LAUNCH]
+        for start in range(0, len(tile1), KEPT_BATCH):
+            stop = start + KEPT_BATCH
+            kept += int(chunk_keep_mask(
+                lanes1, caps1, caps2, tile1[start:stop], tile2[start:stop],
+                table, cols_binned=cols_binned,
+            ).sum())
+    return kept
+
+
+def count_chunk_blocks_plain(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    tile1: torch.Tensor,
+    tile2: torch.Tensor,
+    chord2_table: torch.Tensor,
+    *,
+    cols_binned: bool = False,
+    caps_of: Callable[[torch.Tensor], torch.Tensor] = chunk_caps,
+) -> None:
+    """Add a cumulative count's chunk blocks (:func:`chunk_blocks`) and the
+    kept ones (:func:`kept_chunk_blocks`, with the caps ``caps_of`` gives
+    for each tile set's lanes) to the counters ``engine.chunk_blocks`` and
+    ``engine.chunk_blocks_kept``, as the kernel's launches would on the
+    card: the plain engines' count. Counts nothing where the tiles do not
+    split into chunks."""
+    tile_size = lanes1.shape[2]
+    if tile_size % CHUNK_SIZE:
+        return
+    count("engine.chunk_blocks",
+          chunk_blocks(len(tile1), tile_size, chord2_table.shape[1]))
+    count("engine.chunk_blocks_kept", kept_chunk_blocks(
+        lanes1, caps_of(lanes1), caps_of(lanes2), tile1, tile2, chord2_table,
+        cols_binned=cols_binned,
+    ))
+
+
 FLAG_ITEM_CHUNKS = 16
 """Column chunks one work item of the flag kernel covers (its mask's
 bits)."""
@@ -363,7 +440,8 @@ def count_pairs_torch(
     """The plain PyTorch engine: ``(num_slots, B, E)`` float32 cumulative
     counts per patch-pair slot, on the device of the lanes. Counts as
     :func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`
-    does (``engine.tile_pairs``, ``engine.candidate_pairs``)."""
+    does (``engine.tile_pairs``, ``engine.candidate_pairs`` and, without
+    ``direct``, the chunk blocks: :func:`count_chunk_blocks_plain`)."""
     device = lanes1.device
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
@@ -371,6 +449,10 @@ def count_pairs_torch(
     tile1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
     tile2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
     slot = torch.from_numpy(np.asarray(pairs.slot, np.int64)).to(device)
+    if direct is None:
+        count_chunk_blocks_plain(
+            lanes1, lanes2, tile1, tile2, chord2_table, cols_binned=cols_binned
+        )
     partial = partial_counts_torch(
         lanes1, lanes2, tile1, tile2, chord2_table,
         cols_binned=cols_binned, direct=direct, chunk_size=chunk_size,

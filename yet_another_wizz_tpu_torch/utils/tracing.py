@@ -15,10 +15,17 @@ Counters count always: :data:`counters` is one process-wide dict, and
 :func:`count` adds to one of its entries. Names are dotted:
 ``engine.launches.<kernel variant>``, ``engine.tile_pairs``,
 ``engine.candidate_pairs`` (tile pairs times the product of the two tile
-sizes), ``cache.hit.<kind>`` and ``cache.miss.<kind>`` of the caches a
-repeated measurement reuses (``edges``, ``tiles``, ``pairs``,
+sizes), ``engine.chunk_blocks`` (the 32 x 32 chunk blocks the cumulative
+kernel's launches decide on) and ``engine.chunk_blocks_kept`` (those its
+chunk skip keeps), ``cache.hit.<kind>`` and ``cache.miss.<kind>`` of the
+caches a repeated measurement reuses (``edges``, ``tiles``, ``pairs``,
 ``pair_index``, ``table``, ``lanes``, ``store``), and the blocked path's
 ``blocked.block_pairs``, ``blocked.upload_bytes`` and ``blocked.upload_s``.
+A count made on a device is pulled in when the counters are read:
+:func:`snapshot`, :func:`recorded` and :func:`reset` first call what
+:func:`pull_from` registered (``engine.chunk_blocks_kept``, counted by the
+cumulative kernel on the card, ``ops/cuda_paircount.py``), which waits for
+the device's queued work.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ __all__ = [
     "PREFIX",
     "count",
     "counters",
+    "pull_from",
     "recorded",
     "reset",
     "snapshot",
@@ -56,6 +64,7 @@ _NULL = contextlib.nullcontext()
 _lock = threading.Lock()  # counts come from worker threads too
 _off = True  # the last span found no profiler recording
 _recording_from: dict[str, int | float] = {}  # counters when it began
+_pulls: list[Callable[[], None]] = []
 
 
 def span(name: str):
@@ -92,14 +101,25 @@ def count(name: str, n: int | float = 1) -> None:
         counters[name] = counters.get(name, 0) + n
 
 
+def pull_from(pull: Callable[[], None]) -> None:
+    """Register ``pull``, which counts (:func:`count`) what a device has
+    counted since its last call; the counters' readers call it first."""
+    _pulls.append(pull)
+
+
 def snapshot() -> dict[str, int | float]:
-    """A copy of the counters."""
+    """A copy of the counters, the devices' counts pulled in."""
+    for pull in _pulls:
+        pull()
     with _lock:
         return dict(counters)
 
 
 def reset() -> None:
-    """Set every counter to zero."""
+    """Set every counter to zero (the devices' counts so far pulled in
+    first, so that none of them counts after it)."""
+    for pull in _pulls:
+        pull()
     with _lock:
         counters.clear()
         _recording_from.clear()
