@@ -67,8 +67,9 @@ REPS = 5
 GRAPH_CALLS = 10
 
 
-def build(name: str, source: Path) -> tuple[Path, str]:
-    """The cumulative-mode library of ``source`` and the compiler's log."""
+def build(name: str, source: Path, mode: int = 0) -> tuple[Path, str]:
+    """The library of ``source`` for counting mode ``mode`` (0 cumulative,
+    1 direct small-angle, 2 direct arcsine) and the compiler's log."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from yet_another_wizz_tpu_torch.ops import cuda_paircount
@@ -77,11 +78,11 @@ def build(name: str, source: Path) -> tuple[Path, str]:
         build_shared_library,
     )
 
-    target = build_directory("yawt_torch_variants") / f"lib_{name}.so"
+    target = build_directory("yawt_torch_variants") / f"lib_{name}_{mode}.so"
     target.unlink(missing_ok=True)
     log = build_shared_library(
         [os.path.join(CUDA_HOME, "bin", "nvcc"), *cuda_paircount.NVCC_FLAGS,
-         "-DYAWT_DIRECT=0"],
+         f"-DYAWT_DIRECT={mode}"],
         [source], target, timeout=600,
     )
     return target, log

@@ -35,7 +35,14 @@ source-bin cell (1.5-5 Mpc, 37 bins; ``torch_skip_counter_cases.py``) the
 chunk blocks the cumulative kernel counts as kept on the card
 (``engine.chunk_blocks_kept``, read with the counters) are the plain
 mirror's sum for a cross and a binned count, and the counted partials are
-the plain version's bit for bit.
+the plain version's bit for bit. The direct variants (K1.3, K1.4; small
+angle, arcsine and 20 counting edges, unbinned and binned columns, real
+and unit weights; ``torch_direct_cases.py``) skip by the same rule: their
+partials are bit for bit those of the same kernel made to evaluate every
+block (caps that keep every chunk: the per-pair evaluation in the same
+order), within the direct tolerance of the plain version (which sums in
+another order), zero for a row tile whose weights are all zero, and the
+blocks they count as kept are the plain mirror's sum.
 """
 
 import collections
@@ -45,6 +52,7 @@ import pytest
 import torch
 
 from torch_chunk_cases import band_inputs, edge_case_inputs, unit_weights
+from torch_direct_cases import direct_inputs
 from torch_skip_counter_cases import count_inputs
 from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
@@ -53,7 +61,9 @@ from yet_another_wizz_tpu_torch.ops.linkage import (
     build_linkage,
     build_tile_pairs,
 )
+from yet_another_wizz_tpu_torch.ops.gweight import counting_width
 from yet_another_wizz_tpu_torch.ops.paircount import (
+    chunk_blocks,
     count_pairs_tiles,
     kept_chunk_blocks,
     partial_counts_torch,
@@ -946,3 +956,73 @@ def test_kept_blocks_on_the_card_are_the_mirrors_sum(device, kind):
         tile1, tile2, table, cols_binned=cols_binned,
     )
     assert result.max() > 0
+
+
+def keep_every_block(lanes):
+    """Chunk caps that keep every block whose row chunk holds a point of
+    nonzero weight: infinite radii, every bin."""
+    caps = torch.zeros(
+        (len(lanes), lanes.shape[2] // 32, 8), dtype=torch.float32,
+        device=lanes.device,
+    )
+    caps[..., 3] = float("inf")
+    caps[..., 4] = float("-inf")
+    caps[..., 5] = float("inf")
+    return caps
+
+
+@pytest.mark.parametrize("weights", ["real", "unit"])
+@pytest.mark.parametrize("cols_binned", [False, True], ids=["cross", "binned"])
+@pytest.mark.parametrize("grid", ["small_angle", "arcsine", "many"])
+def test_direct_chunk_skip_is_the_every_block_evaluation(
+    device, monkeypatch, grid, cols_binned, weights
+):
+    """The direct kernel's partials with the chunk skip are bit for bit
+    those of the same kernel evaluating every block (a skipped pair adds
+    +0, and each row still sums its columns in ascending order), also for
+    a row tile whose weights are all zero; its kept blocks are the plain
+    mirror's sum."""
+    tiles1, tiles2, pairs, table, direct = direct_inputs(
+        grid, cols_binned, sizes=(6000, 9000), tile_size=512, num_patches=6
+    )
+    lanes1 = tiles1.device_data(device).clone()
+    lanes2 = tiles2.device_data(device)
+    if weights == "unit":
+        lanes1, lanes2 = unit_weights(lanes1), unit_weights(lanes2)
+    tile1 = torch.from_numpy(pairs.tile1).to(device)
+    tile2 = torch.from_numpy(pairs.tile2).to(device)
+    table = torch.from_numpy(table).to(device)
+    silent = tile1 == tile1[0]
+    lanes1[tile1[0], 6] = 0.0  # a row tile of zero weights
+    kwargs = dict(cols_binned=cols_binned, direct=direct)
+    mirror = kept_chunk_blocks(
+        lanes1, cuda_paircount._device_caps(lanes1),
+        cuda_paircount._device_caps(lanes2), tile1, tile2, table, **kwargs
+    )
+    tracing.reset()
+    first, second = (
+        cuda_paircount.paircount_partials(
+            lanes1, lanes2, tile1, tile2, table, **kwargs
+        )
+        for _ in range(2)
+    )
+    counted = tracing.snapshot()
+    plain = partial_counts_torch(
+        lanes1, lanes2, tile1.long(), tile2.long(), table, **kwargs
+    )
+    monkeypatch.setattr(cuda_paircount, "_device_caps", keep_every_block)
+    every = cuda_paircount.paircount_partials(
+        lanes1, lanes2, tile1, tile2, table, **kwargs
+    )
+    torch.cuda.synchronize()
+    blocks = chunk_blocks(
+        len(tile1), lanes1.shape[2], counting_width(table.shape[1], direct)
+    )
+    assert 0 < mirror < blocks
+    assert counted[cuda_paircount.KEPT_BLOCKS] == 2 * mirror
+    assert torch.equal(first, second)
+    assert torch.equal(first, every)
+    assert silent.any() and (~silent).any()
+    assert torch.equal(first[silent], torch.zeros_like(first[silent]))
+    assert plain.max() > 0
+    assert_close(first, plain, rtol=1e-5)

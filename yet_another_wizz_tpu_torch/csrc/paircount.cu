@@ -77,7 +77,8 @@
 //        The host reads the total when it reads its counters
 //        (ops/cuda_paircount.py: engine.chunk_blocks_kept; the host counts
 //        engine.chunk_blocks, tile pairs x (T / 32)^2 per launch, where it
-//        queues the launch). The adds touch no count.
+//        queues the launch). The adds touch no count. The direct instances
+//        skip and count by the same rule ((d) below).
 //      - paircount_direct_kernel (K1.3/K1.4): every pair that an edge
 //        counts needs its separation weight, log10(theta) -> sub-interval
 //        index -> weight, which costs more issue slots than the counting.
@@ -93,7 +94,29 @@
 //            the kernel;
 //        (c) a pair beyond its row's largest threshold of the launch (or,
 //            with binned columns, in another bin) adds 0 to every
-//            accumulator, so its weight is not computed at all.
+//            accumulator, so its weight is not computed at all;
+//        (d) most pairs lie beyond every threshold (on the main path
+//            ~0.06 % of candidate pairs are in reach), so the kernel
+//            evaluates only the column chunks a row chunk can reach, by
+//            K1.1's rule and in K1.1's form: one row per thread, a warp's
+//            32 rows one chunk, the column tile's caps in shared memory,
+//            the chunk's reach sqrt(m) + r_row with m the largest of the
+//            launch's counting thresholds over its rows of nonzero weight,
+//            one chunk test per lane balloted into a mask whose set bits
+//            the pair loop walks in ascending order, and the mask's
+//            population counted into kept_blocks as K1.1 counts it.
+//            Exact, bit for bit, by (1)-(4) with (c) for the threshold
+//            test: a skipped pair of nonzero weights lies beyond its row's
+//            largest threshold (or, binned, in another bin), where (c)
+//            adds nothing; a zero-weight column's pair adds w_col * g =
+//            +-0 (g is finite) and a zero-weight row's accumulators are
+//            multiplied by its 0; inside a kept block the chord, (c), the
+//            weight and its additions are the per-pair evaluation's, and a
+//            row's columns still come in ascending order. Two rows per
+//            thread in Morton-adjacent chunks, sharing each column load
+//            while the warp walks the union of the two chunks' masks,
+//            evaluates ~40 % more blocks and was measured 2-11 % slower
+//            on K1.3 (PERF.md).
 //        Only the row's bin and its largest threshold stay per row in
 //        registers beside the accumulators (the bin's thresholds, inv_d
 //        and lo_scaled are loaded from shared memory per weighted pair),
@@ -204,7 +227,7 @@
 // library is built with --fmad=false and without fast-math, so no FMA
 // contraction or approximate logf/expf/sqrtf changes its rounding, and
 // denormals are kept: it matches the plain PyTorch version operation for
-// operation, up to the order of float32 sums, and (1)-(4) and (a)-(c)
+// operation, up to the order of float32 sums, and (1)-(4) and (a)-(d)
 // leave every pair's contribution bit for bit as the per-pair evaluation
 // gives it.
 
@@ -361,6 +384,64 @@ __device__ __forceinline__ bool chunk_reaches(float reach, float4 row_cap,
   return limit >= 0.0f && d2 <= __fmul_rn(limit, limit);
 }
 
+// The column tile's chunk caps into shared memory, (T / kChunk, 2).
+__device__ __forceinline__ void stage_caps(const float4* __restrict__ col_caps,
+                                           int num_chunks, float4* cap_s) {
+  for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
+    cap_s[i] = col_caps[i];
+  }
+}
+
+// How far the warp's row chunk reaches: sqrt(m) + r_row, m the largest of
+// its rows' largest thresholds (kernel C: t + band) over the rows of
+// nonzero weight ((2)), -inf for a chunk that counts nothing
+// (ops/paircount.py::chunk_reach).
+__device__ __forceinline__ float warp_reach(float largest, float w_row,
+                                            float radius) {
+  largest = w_row != 0.0f ? largest : -1.0f;
+#pragma unroll
+  for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+    largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
+  }
+  return largest < 0.0f ? -CUDART_INF_F : __fadd_rn(sqrtf(largest), radius);
+}
+
+// The column chunks chunk0 + c, c < 32, that the warp's row chunk keeps, as
+// a mask: lane c tests chunk chunk0 + c (chunk_reaches and, with binned
+// columns, the bin ranges) and a ballot gathers the decisions (warp-uniform,
+// as each decision is); a skipped chunk's pairs would add +-0 ((1)-(3)).
+// Lane 0 adds the mask's population to the warp's word of kept_s when the
+// blocks are counted.
+template <bool COLS_BINNED>
+__device__ __forceinline__ unsigned int kept_chunks(
+    int chunk0, int num_chunks, float reach, float4 row_cap, float4 row_bins,
+    const float4* cap_s, unsigned int* kept_s, bool counted) {
+  const int tested = chunk0 + threadIdx.x % kWarp;
+  bool keep = tested < num_chunks &&
+              chunk_reaches(reach, row_cap, cap_s[2 * tested]);
+  if constexpr (COLS_BINNED) {
+    const float4 col_bins = tested < num_chunks ? cap_s[2 * tested + 1]
+                                                : row_bins;
+    keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
+  }
+  const unsigned int kept = __ballot_sync(0xffffffffu, keep);
+  if (counted && threadIdx.x % kWarp == 0) {
+    kept_s[threadIdx.x / kWarp] += __popc(kept);
+  }
+  return kept;
+}
+
+// Thread 0 adds the block's kept blocks (the warps' words, after a
+// __syncthreads) to the device's total, once per block; null: not counted.
+__device__ __forceinline__ void add_kept(const unsigned int* kept_s,
+                                         unsigned long long* kept_blocks) {
+  if (kept_blocks != nullptr && threadIdx.x == 0) {
+    unsigned long long kept = 0;
+    for (int w = 0; w < kThreads / kWarp; ++w) kept += kept_s[w];
+    if (kept > 0) atomicAdd(kept_blocks, kept);
+  }
+}
+
 template <int NE, bool COLS_BINNED>
 __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
@@ -393,9 +474,7 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
       caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
   stage_columns(cols, tile_size, col_a, col_b);
   stage_thresholds<NE>(table, num_bins, table_width, edge0, num_group, thr_s);
-  for (int i = threadIdx.x; i < 2 * num_chunks; i += blockDim.x) {
-    cap_s[i] = col_caps[i];
-  }
+  stage_caps(col_caps, num_chunks, cap_s);
   if (threadIdx.x < kThreads / kWarp) kept_s[threadIdx.x] = 0;
   __syncthreads();
 
@@ -423,35 +502,15 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
       acc[e] = 0.0f;
       largest = fmaxf(largest, thr[e]);
     }
-    // the chunk reaches as far as its rows of nonzero weight ((2))
-    largest = w_row != 0.0f ? largest : -1.0f;
-#pragma unroll
-    for (int offset = kWarp / 2; offset > 0; offset /= 2) {
-      largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
-    }
     const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float4 row_cap = valid ? row_caps[2 * (row / kChunk)] : none;
     const float4 row_bins = valid ? row_caps[2 * (row / kChunk) + 1] : none;
-    // -inf for a chunk that counts nothing
-    const float reach = largest < 0.0f ? -CUDART_INF_F
-                                       : __fadd_rn(sqrtf(largest), row_cap.w);
+    const float reach = warp_reach(largest, w_row, row_cap.w);
 
-    // the column chunks the warp keeps, as a mask per run of 32 chunks:
-    // lane c tests chunk chunk0 + c; a skipped chunk's pairs would add +-0
-    // ((1)-(3))
     for (int chunk0 = 0; chunk0 < num_chunks; chunk0 += kWarp) {
-      const int tested = chunk0 + threadIdx.x % kWarp;
-      bool keep = tested < num_chunks &&
-                  chunk_reaches(reach, row_cap, cap_s[2 * tested]);
-      if constexpr (COLS_BINNED) {
-        const float4 col_bins = tested < num_chunks ? cap_s[2 * tested + 1]
-                                                    : row_bins;
-        keep = keep && !(row_bins.y < col_bins.x || col_bins.y < row_bins.x);
-      }
-      unsigned int kept = __ballot_sync(0xffffffffu, keep);
-      if (kept_blocks != nullptr && threadIdx.x % kWarp == 0) {
-        kept_s[threadIdx.x / kWarp] += __popc(kept);
-      }
+      unsigned int kept = kept_chunks<COLS_BINNED>(
+          chunk0, num_chunks, reach, row_cap, row_bins, cap_s, kept_s,
+          kept_blocks != nullptr);
       for (; kept != 0u; kept &= kept - 1u) {  // ascending chunks ((4))
         const int chunk = chunk0 + __ffs(kept) - 1;
         for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
@@ -487,11 +546,7 @@ __global__ void __launch_bounds__(kThreads) paircount_partials_kernel(
     }
   }
   __syncthreads();
-  if (kept_blocks != nullptr && threadIdx.x == 0) {
-    unsigned long long kept = 0;
-    for (int w = 0; w < kThreads / kWarp; ++w) kept += kept_s[w];
-    if (kept > 0) atomicAdd(kept_blocks, kept);
-  }
+  add_kept(kept_s, kept_blocks);
   reduce_rows<NE>(row_val, row_bin, tile_size, num_bins, num_edges, edge0,
                   num_group, k, partial);
 }
@@ -522,7 +577,7 @@ __device__ __forceinline__ void load_thresholds(const float* thr,
 
 // The direct weight of one pair and its addition to a row's accumulators.
 // The bin's thresholds, inv_d and lo_scaled are loaded here, not held per
-// row, to keep the registers of two rows within 64.
+// row, to keep a row's registers beside the chunk mask within 64.
 template <int NE, int DIRECT>
 __device__ __forceinline__ void add_weighted(float chord2, float w_col,
                                              const float* thr_bin,
@@ -562,22 +617,25 @@ __global__ void __launch_bounds__(kThreads, kDirectMinBlocks)
 paircount_direct_kernel(
     const float* __restrict__ lanes1,  // (N1, 8, T) row tiles
     const float* __restrict__ lanes2,  // (N2, 8, T) column tiles
+    const float* __restrict__ caps1,   // (N1, T / kChunk, kCapWidth)
+    const float* __restrict__ caps2,   // (N2, T / kChunk, kCapWidth)
     const int* __restrict__ tile1,     // (P,) row tile of each pair
     const int* __restrict__ tile2,     // (P,) column tile of each pair
     const float* __restrict__ table,   // (B, W): E thresholds + parameters
     const int* __restrict__ layout,    // spans (B, S, 3), entries (N, 2)
     int num_bins, int table_width, int num_edges, int edge0, int num_group,
     int tile_size, int num_sub, int num_entries,
-    float* __restrict__ partial) {     // (P, B, E)
-  // rows per thread: two rows share each column load while their
-  // thresholds and accumulators fit the register budget
-  constexpr int kRows = NE <= 4 ? 2 : 1;
+    float* __restrict__ partial,       // (P, B, E)
+    unsigned long long* kept_blocks) { // the device's total, or null
+  const int num_chunks = tile_size / kChunk;
   const int num_spans = num_bins * num_sub;
   extern __shared__ float4 smem[];
+  __shared__ unsigned int kept_s[kThreads / kWarp];  // blocks kept per warp
   float4* col_a = smem;              // (T)
   float4* col_b = smem + tile_size;  // (T)
+  float4* cap_s = smem + 2 * tile_size;  // (T / kChunk, 2) column caps
   // (B * S) base weight bits, start, split, stop of the entries
-  int4* span_s = reinterpret_cast<int4*>(smem + 2 * tile_size);
+  int4* span_s = reinterpret_cast<int4*>(cap_s + 2 * num_chunks);
   float* thr_s = reinterpret_cast<float*>(span_s + num_spans);  // (B, NE)
   float2* entry_s = reinterpret_cast<float2*>(thr_s + num_bins * NE);  // (N)
   float2* coef_s = entry_s + num_entries;  // (B) inv_d, lo_scaled
@@ -587,8 +645,13 @@ paircount_direct_kernel(
   const long long k = blockIdx.x;
   const float* rows = lanes1 + static_cast<long long>(tile1[k]) * 8 * tile_size;
   const float* cols = lanes2 + static_cast<long long>(tile2[k]) * 8 * tile_size;
+  const float4* row_caps = reinterpret_cast<const float4*>(
+      caps1 + static_cast<long long>(tile1[k]) * num_chunks * kCapWidth);
+  const float4* col_caps = reinterpret_cast<const float4*>(
+      caps2 + static_cast<long long>(tile2[k]) * num_chunks * kCapWidth);
   stage_columns(cols, tile_size, col_a, col_b);
   stage_thresholds<NE>(table, num_bins, table_width, edge0, num_group, thr_s);
+  stage_caps(col_caps, num_chunks, cap_s);
   // (a): the base weight of each (bin, sub-interval), from the operands a
   // pair in it gives expf; (b): its span of entries
   for (int s = threadIdx.x; s < num_spans; s += blockDim.x) {
@@ -607,82 +670,85 @@ paircount_direct_kernel(
     const float* p = table + b * table_width + num_edges;
     coef_s[b] = make_float2(p[0], p[1]);
   }
+  if (threadIdx.x < kThreads / kWarp) kept_s[threadIdx.x] = 0;
   __syncthreads();
 
   const float last_sub = static_cast<float>(num_sub - 1);
-  for (int base = 0; base < tile_size; base += kRows * blockDim.x) {
-    float xh[kRows], yh[kRows], zh[kRows];
-    float xl[kRows], yl[kRows], zl[kRows];
-    float zr[kRows];
-    float acc[kRows][NE];
-    float reach[kRows];  // the row's largest threshold of this launch
-    int bin[kRows];
+  for (int base = 0; base < tile_size; base += blockDim.x) {
+    // one row per thread: the warp's rows are one chunk, all of them
+    // valid or none (T is a multiple of kChunk)
+    const int row = base + threadIdx.x;
+    const bool valid = row < tile_size;
+    const int at = valid ? row : 0;
+    const float xh = rows[at];
+    const float yh = rows[tile_size + at];
+    const float zh = rows[2 * tile_size + at];
+    const float xl = rows[3 * tile_size + at];
+    const float yl = rows[4 * tile_size + at];
+    const float zl = rows[5 * tile_size + at];
+    const float zr = rows[7 * tile_size + at];
+    const int bin = min(max(static_cast<int>(zr), 0), num_bins - 1);
+    float acc[NE];
+    float reach = -1.0f;  // the row's largest threshold of this launch
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * blockDim.x + threadIdx.x;
-      const bool valid = row < tile_size;
-      const int at = valid ? row : 0;
-      xh[r] = rows[at];
-      yh[r] = rows[tile_size + at];
-      zh[r] = rows[2 * tile_size + at];
-      xl[r] = rows[3 * tile_size + at];
-      yl[r] = rows[4 * tile_size + at];
-      zl[r] = rows[5 * tile_size + at];
-      zr[r] = rows[7 * tile_size + at];
-      bin[r] = min(max(static_cast<int>(zr[r]), 0), num_bins - 1);
-      reach[r] = -1.0f;
+    for (int e = 0; e < NE; ++e) {
+      acc[e] = 0.0f;
+      reach = fmaxf(reach, thr_s[bin * NE + e]);
+    }
+    reach = valid ? reach : -1.0f;
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 row_cap = valid ? row_caps[2 * (row / kChunk)] : none;
+    const float4 row_bins = valid ? row_caps[2 * (row / kChunk) + 1] : none;
+    const float chunk_reach =
+        warp_reach(reach, rows[6 * tile_size + at], row_cap.w);
+
+    for (int chunk0 = 0; chunk0 < num_chunks; chunk0 += kWarp) {
+      // (d): only the kept column chunks, in ascending order
+      unsigned int kept = kept_chunks<COLS_BINNED>(
+          chunk0, num_chunks, chunk_reach, row_cap, row_bins, cap_s, kept_s,
+          kept_blocks != nullptr);
+      for (; kept != 0u; kept &= kept - 1u) {
+        const int chunk = chunk0 + __ffs(kept) - 1;
+        for (int j = chunk * kChunk; j < (chunk + 1) * kChunk; ++j) {
+          const float4 a = col_a[j];
+          const float4 c = col_b[j];
+          // compensated difference: (hi1 - hi2) + (lo1 - lo2)
+          const float dx = __fadd_rn(__fsub_rn(xh, a.x), __fsub_rn(xl, c.x));
+          const float dy = __fadd_rn(__fsub_rn(yh, a.y), __fsub_rn(yl, c.y));
+          const float dz = __fadd_rn(__fsub_rn(zh, a.z), __fsub_rn(zl, c.z));
+          float chord2 = __fmul_rn(dx, dx);
+          chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
+          chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
+
+          // (c): a pair no edge counts (beyond the row's largest threshold
+          // or, with binned columns, in another bin) would add 0 to every
+          // accumulator, and an accumulator that starts at +0 is never -0,
+          // so adding +0 is the identity: its weight is skipped
+          bool counted = chord2 <= reach;
+          if constexpr (COLS_BINNED) {
+            // exact compare of the float bin lanes
+            counted = counted && c.w == zr;
+          }
+          if (counted) {
+            add_weighted<NE, DIRECT>(chord2, a.w, thr_s + bin * NE,
+                                     coef_s[bin], span_s + bin * num_sub,
+                                     entry_s, last_sub, acc);
+          }
+        }
+      }
+    }
+
+    if (valid) {
+      const float w_row = rows[6 * tile_size + row];
+      row_bin[row] = bin;
 #pragma unroll
       for (int e = 0; e < NE; ++e) {
-        acc[r][e] = 0.0f;
-        reach[r] = fmaxf(reach[r], thr_s[bin[r] * NE + e]);
-      }
-      reach[r] = valid ? reach[r] : -1.0f;
-    }
-
-    for (int j = 0; j < tile_size; ++j) {
-      const float4 a = col_a[j];
-      const float4 c = col_b[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        // compensated difference: (hi1 - hi2) + (lo1 - lo2)
-        const float dx = __fadd_rn(__fsub_rn(xh[r], a.x), __fsub_rn(xl[r], c.x));
-        const float dy = __fadd_rn(__fsub_rn(yh[r], a.y), __fsub_rn(yl[r], c.y));
-        const float dz = __fadd_rn(__fsub_rn(zh[r], a.z), __fsub_rn(zl[r], c.z));
-        float chord2 = __fmul_rn(dx, dx);
-        chord2 = __fadd_rn(chord2, __fmul_rn(dy, dy));
-        chord2 = __fadd_rn(chord2, __fmul_rn(dz, dz));
-
-        // (c): a pair no edge counts (beyond the row's largest threshold
-        // or, with binned columns, in another bin) would add 0 to every
-        // accumulator, and an accumulator that starts at +0 is never -0,
-        // so adding +0 is the identity: its weight is skipped
-        bool counted = chord2 <= reach[r];
-        if constexpr (COLS_BINNED) {
-          // exact compare of the float bin lanes
-          counted = counted && c.w == zr[r];
-        }
-        if (counted) {
-          add_weighted<NE, DIRECT>(chord2, a.w, thr_s + bin[r] * NE,
-                                   coef_s[bin[r]], span_s + bin[r] * num_sub,
-                                   entry_s, last_sub, acc[r]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * blockDim.x + threadIdx.x;
-      if (row < tile_size) {
-        const float w_row = rows[6 * tile_size + row];
-        row_bin[row] = bin[r];
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          row_val[row * NE + e] = __fmul_rn(w_row, acc[r][e]);
-        }
+        row_val[row * NE + e] = __fmul_rn(w_row, acc[e]);
       }
     }
   }
   __syncthreads();
+  add_kept(kept_s, kept_blocks);
   reduce_rows<NE>(row_val, row_bin, tile_size, num_bins, num_edges, edge0,
                   num_group, k, partial);
 }
@@ -726,11 +792,11 @@ int launch_partials(const Launch& a) {
   const size_t tile = static_cast<size_t>(a.tile_size);
   const size_t bins = static_cast<size_t>(a.num_bins);
   size_t smem = 2 * tile * sizeof(float4) + tile * NE * sizeof(float) +
-                tile * sizeof(int) + bins * NE * sizeof(float);
+                tile * sizeof(int) + bins * NE * sizeof(float) +
+                2 * (tile / kChunk) * sizeof(float4);
   const unsigned int blocks = static_cast<unsigned int>(a.num_pairs);
   int status;
   if constexpr (YAWT_DIRECT == kCumulative) {
-    smem += 2 * (tile / kChunk) * sizeof(float4);
     auto kernel = paircount_partials_kernel<NE, COLS_BINNED>;
     status = prepare(kernel, smem);
     if (status != 0) return status;
@@ -746,9 +812,10 @@ int launch_partials(const Launch& a) {
     status = prepare(kernel, smem);
     if (status != 0) return status;
     kernel<<<blocks, kThreads, smem, a.stream>>>(
-        a.lanes1, a.lanes2, a.tile1, a.tile2, a.table, a.layout, a.num_bins,
-        a.table_width, a.num_edges, a.edge0, a.num_group, a.tile_size,
-        a.num_sub, a.num_entries, a.partial);
+        a.lanes1, a.lanes2, a.caps1, a.caps2, a.tile1, a.tile2, a.table,
+        a.layout, a.num_bins, a.table_width, a.num_edges, a.edge0,
+        a.num_group, a.tile_size, a.num_sub, a.num_entries, a.partial,
+        a.kept_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -850,18 +917,10 @@ __global__ void __launch_bounds__(kThreads) flag_reach_kernel(
     const int at = bin * num_edges + edge0 + e;
     largest = fmaxf(largest, __fadd_rn(table[at], band[at]));
   }
-  // the chunk reaches as far as its rows of nonzero weight
-  largest = w_row != 0.0f ? largest : -1.0f;
-#pragma unroll
-  for (int offset = kWarp / 2; offset > 0; offset /= 2) {
-    largest = fmaxf(largest, __shfl_xor_sync(0xffffffffu, largest, offset));
-  }
-  if (threadIdx.x % kWarp == 0) {
-    // -inf for a chunk that can flag nothing
-    reach[chunk] = largest < 0.0f
-                       ? -CUDART_INF_F
-                       : __fadd_rn(sqrtf(largest), caps1[chunk * kCapWidth + 3]);
-  }
+  // -inf for a chunk that can flag nothing
+  const float chunk_reach =
+      warp_reach(largest, w_row, caps1[chunk * kCapWidth + 3]);
+  if (threadIdx.x % kWarp == 0) reach[chunk] = chunk_reach;
 }
 
 // C1, the triage: one warp per entry, from the chunk caps and C0's reach
@@ -1246,15 +1305,14 @@ int yawt_kept_total_bytes() { return sizeof(unsigned long long); }
 // of a (num_bins, table_width) table whose first num_edges columns are
 // squared-chord thresholds and, in direct mode, whose remaining columns
 // are the weight parameters [inv_d, lo_scaled, gc0, gc1, entries...]
-// (num_sub uniform sub-intervals). The cumulative build reads the tiles'
-// chunk caps caps1 / caps2, (N, T / 32, 8) float32 each
-// (ops/tiles.py::chunk_caps; T a multiple of 32); the direct builds ignore
-// them. In direct mode, layout holds the
+// (num_sub uniform sub-intervals). Every build reads the tiles' chunk caps
+// caps1 / caps2, (N, T / 32, 8) float32 each (ops/tiles.py::chunk_caps; T
+// a multiple of 32). In direct mode, layout holds the
 // int32 (num_bins, num_sub, 3) entry spans followed by the num_entries
 // (thr, g) float32 entries (ops/gweight.py::EntryLayout.packed); the
 // cumulative build ignores num_sub, layout and num_entries.
-// The cumulative build adds the 32 x 32 chunk blocks it evaluates to
-// *kept_blocks unless it is null; the direct builds ignore it.
+// The launch adds the 32 x 32 chunk blocks it evaluates to *kept_blocks
+// unless it is null.
 // 1 <= num_group <= 16. Returns cudaGetLastError() after the launch, the
 // error of raising the kernel's shared-memory limit, or -1 when the launch
 // needs more shared memory than one block may have (a tile, table or

@@ -17,8 +17,8 @@ _paircount_kernel`` in all of its variants (ROADMAP K1.1-K1.5):
 Together they are deterministic: no float atomics, a summation order fixed
 by the shapes alone. Kernel A is bound by float32 issue: the compensated
 chord, a compare and an add per counting edge, and in direct mode the
-separation weight of each pair that an edge counts. Its cumulative
-instances evaluate only the column chunks that a warp's rows can reach:
+separation weight of each pair that an edge counts. Every instance
+evaluates only the column chunks that a warp's rows can reach:
 each warp (32 consecutive rows) tests its chunk cap against every column
 chunk's (:func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`, derived
 from the lanes by :func:`_device_caps`) and skips the chunks beyond its
@@ -36,9 +36,9 @@ work queued on the card, whenever it reads its counters
 ``engine.chunk_blocks_kept``. :func:`count_pairs_cuda` counts the blocks
 the launches decide on, tile pairs times ``(T / 32)^2`` per launch, into
 ``engine.chunk_blocks`` (on the CPU the plain mirror counts both,
-:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_chunk_blocks_plain`).
-The direct instances count no blocks. They take the base weight of a
-pair's (bin, sub-interval) from a table the block fills in shared memory with the same ``expf``, walk only the
+:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_chunk_blocks_plain`),
+cumulative and direct launches alike. The direct instances take the base
+weight of a pair's (bin, sub-interval) from a table the block fills in shared memory with the same ``expf``, walk only the
 below/above entries of the pair's own sub-interval (grouped from the table
 itself by :func:`~yet_another_wizz_tpu_torch.ops.gweight.entry_layout`,
 once per table, held in shared memory, any number of them), and skip the weight of a pair beyond
@@ -161,7 +161,7 @@ LAUNCHES = "engine.launches."
 """The prefix of the launch counters' names; the variant follows."""
 
 KEPT_BLOCKS = "engine.chunk_blocks_kept"
-"""The counter of the chunk blocks the cumulative kernel kept."""
+"""The counter of the chunk blocks kernel A kept."""
 
 
 def variant_name(cols_binned: bool, direct: tuple | None) -> str:
@@ -332,8 +332,8 @@ lanes' version counter."""
 
 def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
     """The :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps` of
-    ``lanes`` on their device: the only source of the caps the cumulative
-    kernel reads. Derived on the lanes' first use and cached until they are
+    ``lanes`` on their device: the only source of the caps kernel A
+    reads. Derived on the lanes' first use and cached until they are
     freed or changed in place."""
     key = id(lanes)
     cached = _caps.get(key)
@@ -348,14 +348,14 @@ def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
 
 _kept_lock = threading.Lock()
 _kept_totals: dict[torch.device, torch.Tensor] = {}
-"""Per device, the int64 total of the chunk blocks the cumulative kernel
-kept there (one zeroing per device and process; never reset)."""
+"""Per device, the int64 total of the chunk blocks kernel A kept there
+(one zeroing per device and process; never reset)."""
 _kept_seen: dict[torch.device, int] = {}
 """Per device, the total the host has read last: what it has counted."""
 
 
 def _kept_total(device: torch.device) -> torch.Tensor:
-    """The device's kept-block total that the cumulative kernel adds to."""
+    """The device's kept-block total that kernel A adds to."""
     with _kept_lock:
         total = _kept_totals.get(device)
         if total is None:
@@ -365,7 +365,7 @@ def _kept_total(device: torch.device) -> torch.Tensor:
 
 
 def _pull_kept() -> None:
-    """Count what the cumulative kernel has kept on each device since the
+    """Count what kernel A has kept on each device since the
     last read (:data:`KEPT_BLOCKS`). Waits for the work queued on the
     devices that have a total, so the blocks count together with the
     launches that ``engine.chunk_blocks`` counted on the host; the counters'
@@ -406,15 +406,15 @@ def paircount_partials(
 ) -> torch.Tensor:
     """``(P, B, E)`` float32 block of every tile pair ``(tile1[k],
     tile2[k])`` (kernel A). ``lanes*`` are ``(N, 8, T)`` float32 tiles
-    (``T`` a multiple of 32 for the cumulative kernel on the card, which
-    skips the column chunks no row of a warp reaches by the lanes' chunk
-    caps, :func:`_device_caps`), ``tile*`` int32 indices,
+    (``T`` a multiple of 32 on the card, where the kernel skips the
+    column chunks no row of a warp reaches by the lanes' chunk caps,
+    :func:`_device_caps`), ``tile*`` int32 indices,
     ``chord2_table`` the ``(B, E)`` float32 thresholds or, with ``direct = (num_sub, num_below, num_above,
     small_angle)``, the ``(B, E + C)`` combined table of
     :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges.combined_table`.
     ``cols_binned`` counts a column only where its bin equals the row's.
-    The cumulative kernel adds the chunk blocks it keeps to the device's
-    kept-block total. In direct mode the kernel reads
+    The kernel adds the chunk blocks it keeps to the device's
+    kept-block total. In direct mode it reads
     the table's entries as the layout of :func:`_device_layout`, derived
     from this table. Launches on the
     current stream and does not synchronise (except to derive that layout
@@ -441,14 +441,12 @@ def paircount_partials(
         raise ValueError("'tile1' and 'tile2' differ in length")
     num_pairs = len(tile1)
     num_bins, table_width = chord2_table.shape
-    caps_ptrs, num_sub, num_entries, layout_ptr = (None, None), 0, 0, None
-    kept_ptr = None
-    if direct is None:
-        caps_ptrs = (
-            _device_caps(lanes1).data_ptr(), _device_caps(lanes2).data_ptr()
-        )
-        kept_ptr = _kept_total(device).data_ptr()
-    else:
+    caps_ptrs = (
+        _device_caps(lanes1).data_ptr(), _device_caps(lanes2).data_ptr()
+    )
+    kept_ptr = _kept_total(device).data_ptr()
+    num_sub, num_entries, layout_ptr = 0, 0, None
+    if direct is not None:
         num_sub = direct[0]
         layout = _device_layout(chord2_table, num_edges, direct)
         num_entries = (len(layout) - 3 * num_bins * num_sub) // 2
@@ -750,8 +748,8 @@ def count_pairs_cuda(
     of a slot-sorted tile-pair list: kernel A, then kernel B, queued on the
     current stream (or their plain versions for CPU tensors). Adds the
     list's tile pairs and candidate pairs to the counters
-    ``engine.tile_pairs`` and ``engine.candidate_pairs`` and, counting
-    cumulatively, its launches' chunk blocks to ``engine.chunk_blocks``.
+    ``engine.tile_pairs`` and ``engine.candidate_pairs`` and its launches'
+    chunk blocks to ``engine.chunk_blocks``.
     On the card the kernel counts the kept blocks, which the host reads
     with its counters (:func:`_pull_kept`); on the CPU the plain mirror
     counts them
@@ -765,14 +763,16 @@ def count_pairs_cuda(
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
     count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
-    if direct is None and lanes1.device.type == "cpu":
+    if lanes1.device.type == "cpu":
         count_chunk_blocks_plain(
             lanes1, lanes2, index.tile1, index.tile2, chord2_table,
-            cols_binned=cols_binned, caps_of=_device_caps,
+            cols_binned=cols_binned, direct=direct, caps_of=_device_caps,
         )
-    elif direct is None:
-        count("engine.chunk_blocks",
-              chunk_blocks(num_pairs, lanes1.shape[2], chord2_table.shape[1]))
+    else:
+        count("engine.chunk_blocks", chunk_blocks(
+            num_pairs, lanes1.shape[2],
+            counting_width(chord2_table.shape[1], direct),
+        ))
     partial = paircount_partials(
         lanes1, lanes2, index.tile1, index.tile2, chord2_table,
         cols_binned=cols_binned, direct=direct,

@@ -280,11 +280,12 @@ def chunk_keep_mask(
     band_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``(P, K, K)`` bool, ``K = T / 32``: the (row chunk, column chunk)
-    blocks of each tile pair that the cumulative CUDA kernel evaluates, in
+    blocks of each tile pair that the CUDA pair-count kernel evaluates, in
     the kernel's float32 operations and order (``csrc/paircount.cu``,
     ``chunk_reaches``). ``lanes1`` are the row tiles, ``caps*`` the
     tile sets' :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps`,
-    ``chord2_table`` one launch's edges. A row chunk reaches as far
+    ``chord2_table`` one launch's counting edges (never a direct table's
+    parameter block). A row chunk reaches as far
     as :func:`chunk_reach`; a block is dropped when the caps lie farther
     apart than the radii plus that chord or, with binned columns, when
     their bin ranges are disjoint. With ``band_table`` (``(B, E)``
@@ -309,7 +310,7 @@ def chunk_keep_mask(
 
 
 def chunk_blocks(num_pairs: int, tile_size: int, num_edges: int) -> int:
-    """The 32 x 32 chunk blocks that the cumulative CUDA kernel's launches
+    """The 32 x 32 chunk blocks that the CUDA pair-count kernel's launches
     over a list of ``num_pairs`` tile pairs decide on: ``(T / 32)^2`` per
     tile pair and launch, one launch per group of
     :data:`MAX_EDGES_PER_LAUNCH` of the ``num_edges`` counting edges."""
@@ -326,14 +327,18 @@ def kept_chunk_blocks(
     chord2_table: torch.Tensor,
     *,
     cols_binned: bool = False,
+    direct: tuple | None = None,
 ) -> int:
     """Of :func:`chunk_blocks`, those the chunk skip keeps: the sum of
-    :func:`chunk_keep_mask` over the launches' groups of edges, in batches
-    of :data:`KEPT_BATCH` tile pairs. What the cumulative kernel adds to
-    ``engine.chunk_blocks_kept`` for the same launches."""
+    :func:`chunk_keep_mask` over the launches' groups of counting edges
+    (with ``direct``, the combined table's first ``counting_width``
+    columns), in batches of :data:`KEPT_BATCH` tile pairs. What the kernel
+    adds to ``engine.chunk_blocks_kept`` for the same launches."""
     kept = 0
-    for edge0 in range(0, chord2_table.shape[1], MAX_EDGES_PER_LAUNCH):
-        table = chord2_table[:, edge0 : edge0 + MAX_EDGES_PER_LAUNCH]
+    num_edges = counting_width(chord2_table.shape[1], direct)
+    for edge0 in range(0, num_edges, MAX_EDGES_PER_LAUNCH):
+        last = min(edge0 + MAX_EDGES_PER_LAUNCH, num_edges)
+        table = chord2_table[:, edge0:last]
         for start in range(0, len(tile1), KEPT_BATCH):
             stop = start + KEPT_BATCH
             kept += int(chunk_keep_mask(
@@ -351,22 +356,24 @@ def count_chunk_blocks_plain(
     chord2_table: torch.Tensor,
     *,
     cols_binned: bool = False,
+    direct: tuple | None = None,
     caps_of: Callable[[torch.Tensor], torch.Tensor] = chunk_caps,
 ) -> None:
-    """Add a cumulative count's chunk blocks (:func:`chunk_blocks`) and the
-    kept ones (:func:`kept_chunk_blocks`, with the caps ``caps_of`` gives
-    for each tile set's lanes) to the counters ``engine.chunk_blocks`` and
+    """Add a count's chunk blocks (:func:`chunk_blocks`) and the kept ones
+    (:func:`kept_chunk_blocks`, with the caps ``caps_of`` gives for each
+    tile set's lanes) to the counters ``engine.chunk_blocks`` and
     ``engine.chunk_blocks_kept``, as the kernel's launches would on the
-    card: the plain engines' count. Counts nothing where the tiles do not
+    card: the plain engines' count, cumulative or, with ``direct``, over a
+    direct table's counting edges. Counts nothing where the tiles do not
     split into chunks."""
     tile_size = lanes1.shape[2]
     if tile_size % CHUNK_SIZE:
         return
-    count("engine.chunk_blocks",
-          chunk_blocks(len(tile1), tile_size, chord2_table.shape[1]))
+    num_edges = counting_width(chord2_table.shape[1], direct)
+    count("engine.chunk_blocks", chunk_blocks(len(tile1), tile_size, num_edges))
     count("engine.chunk_blocks_kept", kept_chunk_blocks(
         lanes1, caps_of(lanes1), caps_of(lanes2), tile1, tile2, chord2_table,
-        cols_binned=cols_binned,
+        cols_binned=cols_binned, direct=direct,
     ))
 
 
@@ -440,8 +447,8 @@ def count_pairs_torch(
     """The plain PyTorch engine: ``(num_slots, B, E)`` float32 cumulative
     counts per patch-pair slot, on the device of the lanes. Counts as
     :func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`
-    does (``engine.tile_pairs``, ``engine.candidate_pairs`` and, without
-    ``direct``, the chunk blocks: :func:`count_chunk_blocks_plain`)."""
+    does (``engine.tile_pairs``, ``engine.candidate_pairs`` and the chunk
+    blocks: :func:`count_chunk_blocks_plain`)."""
     device = lanes1.device
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
@@ -449,10 +456,14 @@ def count_pairs_torch(
     tile1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
     tile2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
     slot = torch.from_numpy(np.asarray(pairs.slot, np.int64)).to(device)
-    if direct is None:
-        count_chunk_blocks_plain(
-            lanes1, lanes2, tile1, tile2, chord2_table, cols_binned=cols_binned
-        )
+    # the caps the kernel's wrapper keeps per lanes tensor: a repeated
+    # count derives them once
+    from yet_another_wizz_tpu_torch.ops.cuda_paircount import _device_caps
+
+    count_chunk_blocks_plain(
+        lanes1, lanes2, tile1, tile2, chord2_table,
+        cols_binned=cols_binned, direct=direct, caps_of=_device_caps,
+    )
     partial = partial_counts_torch(
         lanes1, lanes2, tile1, tile2, chord2_table,
         cols_binned=cols_binned, direct=direct, chunk_size=chunk_size,

@@ -15,7 +15,7 @@ Counters count always: :data:`counters` is one process-wide dict, and
 :func:`count` adds to one of its entries. Names are dotted:
 ``engine.launches.<kernel variant>``, ``engine.tile_pairs``,
 ``engine.candidate_pairs`` (tile pairs times the product of the two tile
-sizes), ``engine.chunk_blocks`` (the 32 x 32 chunk blocks the cumulative
+sizes), ``engine.chunk_blocks`` (the 32 x 32 chunk blocks the pair-count
 kernel's launches decide on) and ``engine.chunk_blocks_kept`` (those its
 chunk skip keeps), ``cache.hit.<kind>`` and ``cache.miss.<kind>`` of the
 caches a repeated measurement reuses (``edges``, ``tiles``, ``pairs``,
@@ -24,7 +24,7 @@ caches a repeated measurement reuses (``edges``, ``tiles``, ``pairs``,
 A count made on a device is pulled in when the counters are read:
 :func:`snapshot`, :func:`recorded` and :func:`reset` first call what
 :func:`pull_from` registered (``engine.chunk_blocks_kept``, counted by the
-cumulative kernel on the card, ``ops/cuda_paircount.py``), which waits for
+pair-count kernel on the card, ``ops/cuda_paircount.py``), which waits for
 the device's queued work.
 """
 
