@@ -2955,14 +2955,14 @@ def proof_phase(card: str, launches_total: dict) -> None:
 def warm_spy():
     """Counts, while active, the tile sets built (``build_tile_set`` as the
     catalog calls it), the lane uploads (``TileSet.device_data``'s
-    ``_Upload``) and the chunk caps derived (``chunk_caps`` as the kernel
-    wrapper calls it)."""
+    ``_Upload``) and the chunk caps derived (``chunk_caps`` as the caps'
+    cache, ``tiles._device_caps``, calls it)."""
     from yet_another_wizz_tpu_torch.catalog import catalog as catalog_module
-    from yet_another_wizz_tpu_torch.ops import cuda_paircount, tiles
+    from yet_another_wizz_tpu_torch.ops import tiles
 
     targets = (
         (catalog_module, "build_tile_set"), (tiles, "_Upload"),
-        (cuda_paircount, "chunk_caps"),
+        (tiles, "chunk_caps"),
     )
     counts = dict.fromkeys((name for _, name in targets), 0)
     saved = []

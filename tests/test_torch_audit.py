@@ -23,6 +23,7 @@ both packages). Held here, with float lanes on both sides:
   configurations, which the audit counts with the union edges.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ runs its plain PyTorch engine (``device="cpu"``), the JAX package its XLA
 engine on one device, both with float lanes.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose, assert_array_equal

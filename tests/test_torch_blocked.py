@@ -11,6 +11,7 @@ catalogs, store hits vs rebuilds, spilled vs resident blocks) agree
 bitwise. The port runs its plain engine on the CPU (``device="cpu"``), the
 JAX package its XLA engine with float lanes."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch
@@ -42,18 +43,6 @@ CONFIG_B = dict(
     rmin=[100, 300, 500], rmax=[300, 500, 1000], unit="kpc", rweight=-1.0,
     resolution=32, zmin=0.15, zmax=1.0, num_bins=4,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads: the blocked loop's prefetch workers run beside
-    torch's thread pool, and at these shapes two threads are as fast as
-    every core, while a full pool per test process stalls on a loaded
-    machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ without a card raises for its default device.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

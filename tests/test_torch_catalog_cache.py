@@ -7,6 +7,7 @@ other with equal rows, patch ids, centers and radii. Host code only: the
 patch assignment of these small catalogs runs on the host in both packages
 (``device="cpu"`` keeps the port off the card)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import weakref
 
 import numpy as np

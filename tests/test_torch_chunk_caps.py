@@ -14,6 +14,7 @@ mask applied is ``torch.equal`` to the same engine without it; and the
 kernel's wrapper derives the caps from the lanes it is given.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import gc
 
 import numpy as np
@@ -31,6 +32,7 @@ from torch_chunk_cases import (
 from yet_another_wizz_tpu.ops.tiles import build_tile_set as jax_build_tile_set
 from yet_another_wizz_tpu_torch import interop
 from yet_another_wizz_tpu_torch.ops import cuda_paircount
+from yet_another_wizz_tpu_torch.ops import tiles as tile_ops
 from yet_another_wizz_tpu_torch.ops.paircount import (
     chunk_keep_mask,
     pair_block_counts,
@@ -223,14 +225,15 @@ def test_wrapper_derives_caps_from_the_lanes():
     """The kernel's wrapper reads no caps from its caller: it derives them
     from the lanes, once, and again after the lanes change in place."""
     lanes = edge_case_inputs(9, signed=True)[0]
-    caps = cuda_paircount._device_caps(lanes)
+    caps = tile_ops._device_caps(lanes)
     assert torch.equal(caps, chunk_caps(lanes))
-    assert cuda_paircount._device_caps(lanes) is caps
+    assert tile_ops._device_caps(lanes) is caps
+    assert cuda_paircount._device_caps is tile_ops._device_caps
     lanes[0, CHANNEL_WEIGHT, :CHUNK_SIZE] = 0.0  # the first chunk now counts nothing
-    changed = cuda_paircount._device_caps(lanes)
+    changed = tile_ops._device_caps(lanes)
     assert torch.equal(changed, chunk_caps(lanes))
     assert torch.isinf(changed[0, 0, 3]) and not torch.isinf(caps[0, 0, 3])
     key = id(lanes)
     del lanes
     gc.collect()
-    assert key not in cuda_paircount._caps
+    assert key not in tile_ops._caps

@@ -21,6 +21,7 @@ its plain PyTorch engine. The JAX package runs with float lanes
   kmeans patches, and two processes over gloo on one project.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import os
 import shutil
 import socket
@@ -52,20 +53,6 @@ RTOL = 1e-6
 COUNT_NAMES = ("dd", "dr", "rd", "rr")
 WORKER = Path(__file__).parent / "torch_cli_worker.py"
 REPO_ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """One torch thread for this module's pipelines: beside the test
-    runner's other workers, each with all the cores' threads, the CPU is
-    oversubscribed, and a CPU mesh of four entries ran 100 times slower
-    than alone."""
-    import torch
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

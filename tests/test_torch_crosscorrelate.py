@@ -12,6 +12,7 @@ package its XLA engine on one device, with float lanes
 by up to sqrt(3)/2 of a quantisation step).
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose, assert_array_equal

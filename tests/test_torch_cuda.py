@@ -45,6 +45,7 @@ another order), zero for a row tile whose weights are all zero, and the
 blocks they count as kept are the plain mirror's sum.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import collections
 
 import numpy as np
@@ -904,7 +905,7 @@ def test_measurement_after_build_trees_uploads_and_builds_nothing(device, monkey
 
     spy(catalog_module, "build_tile_set")
     spy(tiles, "_Upload")
-    spy(cuda_paircount, "chunk_caps")
+    spy(tiles, "chunk_caps")
     tracing.reset()
     (warmed,) = crosscorrelate(config, reference, unknown, ref_rand=randoms, device=device)
     assert events == []

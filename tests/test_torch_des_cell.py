@@ -24,6 +24,7 @@ counters of the cumulative counts.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import importlib.util
 from pathlib import Path
 
@@ -37,7 +38,7 @@ from yet_another_wizz_tpu_torch.correlation.measurements import (
     autocorrelate,
     crosscorrelate,
 )
-from yet_another_wizz_tpu_torch.ops import cuda_paircount, paircount
+from yet_another_wizz_tpu_torch.ops import paircount
 from yet_another_wizz_tpu_torch.ops.paircount import (
     chunk_keep_mask,
     count_pairs_tiles,
@@ -167,9 +168,6 @@ def test_counting_blocks_moves_no_count(monkeypatch):
     counted = measure(7)
     assert tracing.counters["engine.chunk_blocks_kept"] > 0
     # the same measurement with the plain engines' count taken out
-    monkeypatch.setattr(
-        cuda_paircount, "count_chunk_blocks_plain", lambda *a, **k: None
-    )
     monkeypatch.setattr(
         paircount, "count_chunk_blocks_plain", lambda *a, **k: None
     )

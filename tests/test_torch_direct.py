@@ -14,6 +14,7 @@ the neighbouring sub-interval — and a full ``rweight`` measurement agrees
 end to end to 5e-5 (counts) and 1e-4 (samples).
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

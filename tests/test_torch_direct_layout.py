@@ -15,6 +15,7 @@ beyond the last edge); and it agrees with the JAX package's
 derives the layout from the table it is given, once per table.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import gc
 
 import numpy as np
@@ -29,6 +30,7 @@ from yet_another_wizz_tpu.ops.thresholds import (
 )
 from yet_another_wizz_tpu_torch.cosmology import new_scales
 from yet_another_wizz_tpu_torch.ops import cuda_paircount, gweight
+from yet_another_wizz_tpu_torch.ops import tiles as tile_ops
 from yet_another_wizz_tpu_torch.ops.paircount import _device_table
 from yet_another_wizz_tpu_torch.ops.thresholds import build_angular_edges
 
@@ -304,9 +306,9 @@ def test_cache_entry_of_a_freed_tensor_is_not_served_to_its_successor(cache):
             table = torch.from_numpy(
                 rng.normal(0.0, 1.0, (3, 8, 64)).astype(np.float32)
             )
-            got = cuda_paircount._device_caps(table)
+            got = tile_ops._device_caps(table)
             expected = chunk_caps(table).numpy()
-            keys = cuda_paircount._caps
+            keys = tile_ops._caps
         assert_array_equal(got.numpy(), expected)
         key = id(table)
         seen.append(key)

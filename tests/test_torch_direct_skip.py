@@ -17,6 +17,7 @@ the arcsine index, unbinned and binned columns:
   and ``engine.chunk_blocks_kept`` equal to the mirror's sums.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import pytest
 import torch
 

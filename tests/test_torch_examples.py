@@ -10,6 +10,7 @@ golden test recomputes the products with the port on the CPU (marked
 ``slow``, as the JAX one is).
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import importlib
 
 import numpy as np

@@ -22,6 +22,7 @@ devices. The kernel itself is held against the plain version on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ seed) are bitwise equal to the JAX package's; the bins honour
 ``Binning.closed`` at the outer edges, and a weight is never taken for
 padding (negative weights count as they are)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose, assert_array_equal

@@ -1,6 +1,7 @@
 """The PyTorch port stands on its own: it imports neither ``jax`` nor the
 JAX package, and the CUDA backend never falls back to the CPU."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import subprocess
 import sys
 from pathlib import Path

@@ -8,6 +8,7 @@ dispatches on the stored container type; the JAX package's committed
 example products load in the port (read only). The port's ``__all__``
 equals the JAX package's, at the top level and for ``catalog``."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_array_equal

@@ -7,6 +7,7 @@ a card that default raises instead of running on the CPU. Below the
 threshold the host path runs, as in the JAX package.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

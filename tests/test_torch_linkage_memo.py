@@ -11,6 +11,7 @@ repeated measurement gives the counts bitwise of one with the memo emptied.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import sys
 import threading
 

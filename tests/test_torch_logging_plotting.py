@@ -10,6 +10,7 @@
 - the pipeline's check plots log a warning and skip without matplotlib.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import json
 import logging
 import re

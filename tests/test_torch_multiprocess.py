@@ -18,6 +18,7 @@ fails to connect (a port taken between probe and bind) is retried once on
 a fresh port, so a hang fails in seconds.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import os
 import socket
 import subprocess

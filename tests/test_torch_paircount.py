@@ -4,13 +4,14 @@ inputs.
 Inputs are built with numpy from a seed through the JAX package (tile
 sets, the cap-pruned tile-pair list, the threshold table) and converted
 with :mod:`yet_another_wizz_tpu_torch.interop`, so both engines see the
-same bytes. The port's plain PyTorch engine (the version its CUDA kernel
-wrappers run for CPU tensors) is compared with the JAX XLA engine and the
+same bytes. The port's plain PyTorch engine (the engine it runs for CPU
+tensors) is compared with the JAX XLA engine and the
 Pallas kernel (interpreter mode on the CPU). Tolerance ``rtol=1e-6,
 atol=1e-6 * max|ref|``: the chord arithmetic is the same, the float32
 summation order is not.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch
@@ -180,8 +181,9 @@ def test_interop_preserves_inputs(rng):
 
 
 def test_wrappers_take_plain_versions_on_cpu(rng):
-    """For CPU tensors the kernel wrappers run the plain versions and count
-    no launch."""
+    """The kernel wrappers refuse CPU tensors; on the CPU the engine's
+    chooser takes the plain engine for ``auto`` as for ``torch``, bit for
+    bit, and counts no launch."""
     ts1, ts2, pairs, chord2 = cross_inputs(
         rng, num_bins=3, num_patches=4, tile_size=64
     )
@@ -189,24 +191,30 @@ def test_wrappers_take_plain_versions_on_cpu(rng):
     port_pairs = convert_pairs(pairs)
     lanes1, lanes2 = tiles1.device_data("cpu"), tiles2.device_data("cpu")
     table = torch.from_numpy(chord2)
+    tile1 = torch.from_numpy(pairs.tile1.astype(np.int32))
+    tile2 = torch.from_numpy(pairs.tile2.astype(np.int32))
+    with pytest.raises(ValueError, match="no pair-count kernel"):
+        cuda_paircount.count_pairs_cuda(lanes1, lanes2, port_pairs, table)
+    with pytest.raises(ValueError, match="no pair-count kernel"):
+        cuda_paircount.paircount_partials(lanes1, lanes2, tile1, tile2, table)
+    partial = pair_block_counts(lanes1[tile1.long()], lanes2[tile2.long()], table)
+    offsets = torch.zeros(port_pairs.num_slots + 1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="no segment-sum kernel"):
+        cuda_paircount.segment_sum(
+            partial, torch.from_numpy(pairs.slot), offsets, port_pairs.num_slots
+        )
     tracing.reset()
-    via_wrapper = cuda_paircount.count_pairs_cuda(
-        lanes1, lanes2, port_pairs, table
+    via_auto = count_pairs_tiles(
+        tiles1, tiles2, port_pairs, chord2, backend="auto", device="cpu"
     )
     assert not any(k.startswith(cuda_paircount.LAUNCHES) for k in tracing.counters)
-    plain = count_pairs_torch(lanes1, lanes2, port_pairs, table)
-    assert torch.equal(via_wrapper, plain)
-    # the per-pair blocks of the partials wrapper are the plain blocks
-    k = np.arange(min(4, pairs.num_pairs))
-    blocks = cuda_paircount.paircount_partials(
-        lanes1, lanes2, torch.from_numpy(pairs.tile1[k]),
-        torch.from_numpy(pairs.tile2[k]), table,
+    plain = count_pairs_tiles(
+        tiles1, tiles2, port_pairs, chord2, backend="torch", device="cpu"
     )
+    assert via_auto.tobytes() == plain.tobytes()
     assert torch.equal(
-        blocks,
-        pair_block_counts(
-            lanes1[pairs.tile1[k]], lanes2[pairs.tile2[k]], table
-        ),
+        torch.from_numpy(plain).float(),
+        count_pairs_torch(lanes1, lanes2, port_pairs, table),
     )
 
 

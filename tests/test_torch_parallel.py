@@ -13,6 +13,7 @@ sharded XLA counts and with the port's single-device counts within
 arithmetic is the same, the float32 summation order is not.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ groups of 1,200 rows):
   the audit counts them as the float64 oracle does.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import sys
 from pathlib import Path
 
@@ -49,15 +50,6 @@ TINY = ["--rows", "24000", "--patches", "8", "--resident", "3", "--ingest-chunk"
         "--parquet-chunk", "1200", "--downsample", "4", "--device", "cpu"]
 COLUMNS = dict(ra_name="ra", dec_name="dec", redshift_name="z", weight_name="w")
 RTOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: the test runner's other workers share the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -2,6 +2,7 @@
 package's: the same inputs give the same pixels and angles, and the same
 seed draws the same points (both are numpy code, so equality is exact)."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_array_equal

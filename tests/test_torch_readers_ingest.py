@@ -16,6 +16,7 @@ one-process job writes the streaming writer's cache.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 from pathlib import Path
 
 import numpy as np

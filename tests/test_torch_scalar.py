@@ -13,6 +13,7 @@ a kappa count is a sum of signed terms, and its cancellation magnifies
 the relative float32 error of a small estimate.
 """
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose, assert_array_equal

@@ -14,6 +14,7 @@ signature. The only exceptions are :data:`RETIRED`, each naming the
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import ast
 import re
 from functools import cache

@@ -1,6 +1,7 @@
 """The port's persistent packed-tile store: round trip, fingerprint, and
 coexistence with the JAX package's store in one cache directory."""
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 from numpy.testing import assert_array_equal

@@ -10,6 +10,7 @@ misses none.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per test process)
 import json
 import os
 import sys

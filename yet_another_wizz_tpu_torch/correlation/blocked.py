@@ -983,18 +983,8 @@ def _blocked_loop(
         top_up("cols")
 
         num_block_pairs = 0
-        # direct separation-weighted counting when available (the oracle
-        # backend and the audit require the union-edge representation); the
-        # combined table is built once, not per block pair
-        direct = edges.direct if backend != "oracle" and not audit else None
-        if direct is not None:
-            table, edges_radian, spec, mapper = (
-                direct.combined_table(), direct.edges, direct.spec, direct
-            )
-        else:
-            table, edges_radian, spec, mapper = (
-                edges.chord2_table, edges.edges, None, edges
-            )
+        # the combined table is built once, not per block pair
+        table, edges_radian, spec, mapper = edges.engine_table(backend, audit)
         bin_max_angles = edges.edges.max(axis=1)
 
     try:

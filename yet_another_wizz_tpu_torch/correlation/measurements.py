@@ -616,14 +616,9 @@ class PatchLinkage:
 
     def engine_table(self, backend: str = "auto", audit: bool = False):
         """``(table, edges_radian, direct_spec, mapper)`` of the engine:
-        the direct-mode tables when the edges carry them, except for the
-        ``oracle`` backend and the ``audit``, which need the union-edge
-        cumulative representation (both are the same in float64, see
-        :class:`~yet_another_wizz_tpu_torch.ops.thresholds.DirectEdges`)."""
-        direct = self.edges.direct
-        if direct is not None and backend != "oracle" and not audit:
-            return direct.combined_table(), direct.edges, direct.spec, direct
-        return self.edges.chord2_table, self.edges.edges, None, self.edges
+        :meth:`~yet_another_wizz_tpu_torch.ops.thresholds.AngularEdges.
+        engine_table` of this linkage's edges."""
+        return self.edges.engine_table(backend, audit)
 
     def _run_engine(
         self, catalog1, catalog2, *, auto, binned2, mode, backend, device,

@@ -73,11 +73,9 @@ order of the items; they are bit for bit those of the plain version,
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use, once per
 counting mode and in parallel, into ``build/yawt_torch_kernels/`` and
-loaded with ``ctypes``. A wrapper given CPU tensors runs the kernel's
-plain PyTorch version from :mod:`.paircount` instead; on a CUDA tensor it
-launches the kernel or raises (kernel C's wrapper takes CUDA tensors only:
-:func:`~yet_another_wizz_tpu_torch.ops.paircount.boundary_flags` picks the
-plain version for the CPU). Each launch adds one to the counter
+loaded with ``ctypes``. The wrappers take CUDA tensors only and raise for
+any other device (:mod:`.paircount` chooses the plain versions for the
+CPU). Each launch adds one to the counter
 ``engine.launches.<variant>`` of
 :mod:`~yet_another_wizz_tpu_torch.utils.tracing` (kernel C's three
 launches, one each of :data:`FLAG_KERNELS`).
@@ -93,19 +91,16 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING
 
-import numpy as np
 import torch
 
 from yet_another_wizz_tpu_torch.ops.gweight import counting_width, entry_layout
+from yet_another_wizz_tpu_torch.ops.linkage import _pair_index
 from yet_another_wizz_tpu_torch.ops.paircount import (
     FLAG_ITEM_CHUNKS,
     MAX_EDGES_PER_LAUNCH,
     chunk_blocks,
-    count_chunk_blocks_plain,
-    partial_counts_torch,
-    segment_sum_torch,
 )
-from yet_another_wizz_tpu_torch.ops.tiles import CHUNK_SIZE, chunk_caps
+from yet_another_wizz_tpu_torch.ops.tiles import CHUNK_SIZE, _device_caps
 from yet_another_wizz_tpu_torch.utils.misc import (
     build_directory,
     build_shared_library,
@@ -285,18 +280,6 @@ def _raise_on_error(status: int, kernel: str) -> None:
         raise RuntimeError(f"launching {kernel} failed with CUDA error {status}")
 
 
-def _table_layout(table: torch.Tensor, direct: tuple | None) -> int:
-    """Counting edges of a (possibly combined) table; raises for a table
-    that does not fit the direct specification."""
-    num_edges = counting_width(table.shape[1], direct)
-    if num_edges < 1:
-        raise ValueError(
-            f"table of width {table.shape[1]} has no counting edges for the "
-            f"direct specification {direct}"
-        )
-    return num_edges
-
-
 _layouts: dict[int, tuple[int, tuple, torch.Tensor]] = {}
 """Entry layouts by ``id`` of the table they were derived from, with the
 table's version counter and direct specification."""
@@ -323,27 +306,6 @@ def _device_layout(
     buffer = torch.from_numpy(layout.packed()).to(table.device)
     _layouts[key] = (table._version, direct, buffer)
     return buffer
-
-
-_caps: dict[int, tuple[int, torch.Tensor]] = {}
-"""Chunk caps by ``id`` of the lanes they were derived from, with the
-lanes' version counter."""
-
-
-def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
-    """The :func:`~yet_another_wizz_tpu_torch.ops.tiles.chunk_caps` of
-    ``lanes`` on their device: the only source of the caps kernel A
-    reads. Derived on the lanes' first use and cached until they are
-    freed or changed in place."""
-    key = id(lanes)
-    cached = _caps.get(key)
-    if cached is not None and cached[0] == lanes._version:
-        return cached[1]
-    if cached is None:
-        weakref.finalize(lanes, _caps.pop, key, None)
-    caps = chunk_caps(lanes)
-    _caps[key] = (lanes._version, caps)
-    return caps
 
 
 _kept_lock = threading.Lock()
@@ -420,12 +382,7 @@ def paircount_partials(
     current stream and does not synchronise (except to derive that layout
     on a table's first use); raises where the layout does not fit in a
     block's shared memory."""
-    num_edges = _table_layout(chord2_table, direct)
-    if lanes1.device.type == "cpu":
-        return partial_counts_torch(
-            lanes1, lanes2, tile1.long(), tile2.long(), chord2_table,
-            cols_binned=cols_binned, direct=direct,
-        )
+    num_edges = counting_width(chord2_table.shape[1], direct)
     if lanes1.device.type != "cuda":
         raise ValueError(f"no pair-count kernel for device {lanes1.device}")
     device = lanes1.device
@@ -492,10 +449,10 @@ def segment_sum(
     """``(num_slots, B, E)`` float32 sums of the slot-sorted partials
     (kernel B): slot ``s`` sums ``partial[offsets[s]:offsets[s + 1]]``,
     zero for an empty run, in the fixed order of the module docstring.
-    ``slot`` feeds the plain version on the CPU, ``offsets`` (int64,
-    ``num_slots + 1``) the kernel."""
-    if partial.device.type == "cpu":
-        return segment_sum_torch(partial, slot, num_slots)
+    The kernel reads ``offsets`` (int64, ``num_slots + 1``); ``slot``, the
+    input of the plain version
+    (:func:`~yet_another_wizz_tpu_torch.ops.paircount.segment_sum_torch`),
+    is not read."""
     if partial.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for device {partial.device}")
     device = partial.device
@@ -698,43 +655,6 @@ def decode_work_items(items: torch.Tensor, length: torch.Tensor) -> torch.Tensor
     return decoded[order]
 
 
-class _PairIndex:
-    """A tile-pair list's index tensors on one device."""
-
-    __slots__ = ("tile1", "tile2", "slot", "offsets")
-
-    def __init__(self, pairs: TilePairs, device: torch.device) -> None:
-        slot = np.asarray(pairs.slot, np.int64)
-        if len(slot) and (
-            np.any(np.diff(slot) < 0) or slot[0] < 0
-            or slot[-1] >= pairs.num_slots
-        ):
-            raise ValueError("the tile-pair list must be sorted by slot")
-        offsets = np.searchsorted(slot, np.arange(pairs.num_slots + 1))
-
-        def upload(array, dtype):
-            return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(device)
-
-        self.tile1 = upload(pairs.tile1, np.int32)
-        self.tile2 = upload(pairs.tile2, np.int32)
-        self.slot = upload(slot, np.int64)
-        self.offsets = upload(offsets, np.int64)
-
-
-def _pair_index(pairs: TilePairs, device: torch.device) -> _PairIndex:
-    """The index tensors and slot run offsets of ``pairs`` on ``device``,
-    computed once and cached on the pair list."""
-    key = ("pair_index", device)
-    index = pairs._device_cache.get(key)
-    if index is None:
-        count("cache.miss.pair_index")
-        index = _PairIndex(pairs, device)
-        pairs._device_cache[key] = index
-    else:
-        count("cache.hit.pair_index")
-    return index
-
-
 def count_pairs_cuda(
     lanes1: torch.Tensor,
     lanes2: torch.Tensor,
@@ -746,33 +666,25 @@ def count_pairs_cuda(
 ) -> torch.Tensor:
     """``(num_slots, B, E)`` float32 cumulative counts per patch-pair slot
     of a slot-sorted tile-pair list: kernel A, then kernel B, queued on the
-    current stream (or their plain versions for CPU tensors). Adds the
-    list's tile pairs and candidate pairs to the counters
-    ``engine.tile_pairs`` and ``engine.candidate_pairs`` and its launches'
-    chunk blocks to ``engine.chunk_blocks``.
-    On the card the kernel counts the kept blocks, which the host reads
-    with its counters (:func:`_pull_kept`); on the CPU the plain mirror
-    counts them
-    (:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_chunk_blocks_plain`)."""
+    current stream of the lanes' CUDA device. Adds the list's tile pairs
+    and candidate pairs to the counters ``engine.tile_pairs`` and
+    ``engine.candidate_pairs`` and its launches' chunk blocks to
+    ``engine.chunk_blocks``; the kernel counts the kept blocks, which the
+    host reads with its counters (:func:`_pull_kept`)."""
     if len(pairs.tile1) and (
         int(pairs.tile1.max()) >= len(lanes1)
         or int(pairs.tile2.max()) >= len(lanes2)
     ):
         raise ValueError("tile-pair list indexes past the tile sets")
+    if lanes1.device.type != "cuda":
+        raise ValueError(f"no pair-count kernel for device {lanes1.device}")
     index = _pair_index(pairs, lanes1.device)
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
     count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
-    if lanes1.device.type == "cpu":
-        count_chunk_blocks_plain(
-            lanes1, lanes2, index.tile1, index.tile2, chord2_table,
-            cols_binned=cols_binned, direct=direct, caps_of=_device_caps,
-        )
-    else:
-        count("engine.chunk_blocks", chunk_blocks(
-            num_pairs, lanes1.shape[2],
-            counting_width(chord2_table.shape[1], direct),
-        ))
+    count("engine.chunk_blocks", chunk_blocks(
+        num_pairs, lanes1.shape[2], counting_width(chord2_table.shape[1], direct),
+    ))
     partial = paircount_partials(
         lanes1, lanes2, index.tile1, index.tile2, chord2_table,
         cols_binned=cols_binned, direct=direct,

@@ -71,10 +71,17 @@ def num_param_cols(num_below: int, num_above: int) -> int:
 def counting_width(num_table_cols: int, direct: tuple | None) -> int:
     """Counting-edge columns of a (possibly combined) threshold table:
     the full width in cumulative mode, the width minus the parameter
-    block in direct mode (``direct = (num_sub, num_below, num_above)``)."""
-    if direct is None:
-        return num_table_cols
-    return num_table_cols - num_param_cols(direct[1], direct[2])
+    block in direct mode (``direct = (num_sub, num_below, num_above)``).
+    Raises for a table without counting edges."""
+    width = num_table_cols
+    if direct is not None:
+        width -= num_param_cols(direct[1], direct[2])
+    if width < 1:
+        raise ValueError(
+            f"table of width {num_table_cols} has no counting edges for the "
+            f"direct specification {direct}"
+        )
+    return width
 
 
 class EntryLayout(NamedTuple):

@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import TYPE_CHECKING
 
 import numpy as np
+import torch
 
 from yet_another_wizz_tpu_torch.utils.tracing import count
 
@@ -119,7 +120,7 @@ class TilePairs:
         default_factory=dict, repr=False, compare=False
     )
     """Engine-side derived inputs keyed by device (the index tensors and
-    slot run offsets of the CUDA kernels). Populated by the engines so
+    slot run offsets of :func:`_pair_index`). Populated by the engines so
     repeated counts over a memoised pair list skip rebuilding AND
     re-uploading their index lists (see :func:`build_tile_pairs`); the
     device tensors are freed with the pair list."""
@@ -131,6 +132,43 @@ class TilePairs:
     @property
     def num_slots(self) -> int:
         return len(self.slot_patches)
+
+
+class _PairIndex:
+    """A tile-pair list's index tensors on one device."""
+
+    __slots__ = ("tile1", "tile2", "slot", "offsets")
+
+    def __init__(self, pairs: TilePairs, device: torch.device) -> None:
+        slot = np.asarray(pairs.slot, np.int64)
+        if len(slot) and (
+            np.any(np.diff(slot) < 0) or slot[0] < 0
+            or slot[-1] >= pairs.num_slots
+        ):
+            raise ValueError("the tile-pair list must be sorted by slot")
+        offsets = np.searchsorted(slot, np.arange(pairs.num_slots + 1))
+
+        def upload(array, dtype):
+            return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(device)
+
+        self.tile1 = upload(pairs.tile1, np.int32)
+        self.tile2 = upload(pairs.tile2, np.int32)
+        self.slot = upload(slot, np.int64)
+        self.offsets = upload(offsets, np.int64)
+
+
+def _pair_index(pairs: TilePairs, device: torch.device) -> _PairIndex:
+    """The index tensors and slot run offsets of ``pairs`` on ``device``
+    that both engines read, computed once and cached on the pair list."""
+    key = ("pair_index", device)
+    index = pairs._device_cache.get(key)
+    if index is None:
+        count("cache.miss.pair_index")
+        index = _PairIndex(pairs, device)
+        pairs._device_cache[key] = index
+    else:
+        count("cache.hit.pair_index")
+    return index
 
 
 MAX_CANDIDATE_CHUNK = 8_000_000

@@ -15,12 +15,13 @@ package does:
   bin, edge)`` tensor; host-side float64 post-processing converts
   cumulative edges into per-scale counts.
 
-Execution paths of :func:`count_pairs_tiles`:
+Execution paths of :func:`count_pairs_tiles` (:func:`count_pairs_engine`
+chooses between the first two):
 
 - ``cuda``: the hand-written CUDA kernels of
   :mod:`yet_another_wizz_tpu_torch.ops.cuda_paircount`, for tile tensors
-  on a CUDA device; ``auto`` goes through the same wrapper, which takes
-  the plain version below for tensors on the CPU;
+  on a CUDA device; ``auto`` takes them there and the plain engine on the
+  CPU;
 - ``torch``: the plain PyTorch engine (:func:`count_pairs_torch`), a
   batched port of the JAX package's ``pair_block_counts`` +
   ``scan_scatter_counts``; the CPU tests use it, and the chip smoke run
@@ -50,17 +51,16 @@ from yet_another_wizz_tpu_torch.ops.gweight import (
     apply_direct_weight,
     counting_width,
 )
+from yet_another_wizz_tpu_torch.ops.linkage import _pair_index
 from yet_another_wizz_tpu_torch.ops.tiles import (
     CHANNEL_WEIGHT,
     CHANNEL_ZBIN,
     CHUNK_SIZE,
-    chunk_caps,
+    _device_caps,
 )
 from yet_another_wizz_tpu_torch.utils.tracing import count, span
 
 if TYPE_CHECKING:
-    from collections.abc import Callable
-
     from numpy.typing import NDArray
 
     from yet_another_wizz_tpu_torch.ops.linkage import TilePairs
@@ -80,6 +80,7 @@ __all__ = [
     "chunk_keep_mask",
     "chunk_reach",
     "count_chunk_blocks_plain",
+    "count_pairs_engine",
     "count_pairs_tiles",
     "count_pairs_torch",
     "flag_work_items",
@@ -357,11 +358,11 @@ def count_chunk_blocks_plain(
     *,
     cols_binned: bool = False,
     direct: tuple | None = None,
-    caps_of: Callable[[torch.Tensor], torch.Tensor] = chunk_caps,
 ) -> None:
     """Add a count's chunk blocks (:func:`chunk_blocks`) and the kept ones
-    (:func:`kept_chunk_blocks`, with the caps ``caps_of`` gives for each
-    tile set's lanes) to the counters ``engine.chunk_blocks`` and
+    (:func:`kept_chunk_blocks`, with the caps cached per lanes tensor,
+    :func:`~yet_another_wizz_tpu_torch.ops.tiles._device_caps`) to the
+    counters ``engine.chunk_blocks`` and
     ``engine.chunk_blocks_kept``, as the kernel's launches would on the
     card: the plain engines' count, cumulative or, with ``direct``, over a
     direct table's counting edges. Counts nothing where the tiles do not
@@ -372,8 +373,8 @@ def count_chunk_blocks_plain(
     num_edges = counting_width(chord2_table.shape[1], direct)
     count("engine.chunk_blocks", chunk_blocks(len(tile1), tile_size, num_edges))
     count("engine.chunk_blocks_kept", kept_chunk_blocks(
-        lanes1, caps_of(lanes1), caps_of(lanes2), tile1, tile2, chord2_table,
-        cols_binned=cols_binned, direct=direct,
+        lanes1, _device_caps(lanes1), _device_caps(lanes2), tile1, tile2,
+        chord2_table, cols_binned=cols_binned, direct=direct,
     ))
 
 
@@ -445,30 +446,63 @@ def count_pairs_torch(
     chunk_size: int = DEFAULT_CHUNK_SIZE,
 ) -> torch.Tensor:
     """The plain PyTorch engine: ``(num_slots, B, E)`` float32 cumulative
-    counts per patch-pair slot, on the device of the lanes. Counts as
+    counts per patch-pair slot, on the device of the lanes, from the pair
+    list's cached index tensors (:func:`~yet_another_wizz_tpu_torch.ops.
+    linkage._pair_index`). Counts as
     :func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`
     does (``engine.tile_pairs``, ``engine.candidate_pairs`` and the chunk
     blocks: :func:`count_chunk_blocks_plain`)."""
-    device = lanes1.device
+    index = _pair_index(pairs, lanes1.device)
+    tile1, tile2 = index.tile1.long(), index.tile2.long()
     num_pairs = int(pairs.num_pairs)
     count("engine.tile_pairs", num_pairs)
     count("engine.candidate_pairs", num_pairs * lanes1.shape[2] * lanes2.shape[2])
-    tile1 = torch.from_numpy(np.asarray(pairs.tile1, np.int64)).to(device)
-    tile2 = torch.from_numpy(np.asarray(pairs.tile2, np.int64)).to(device)
-    slot = torch.from_numpy(np.asarray(pairs.slot, np.int64)).to(device)
-    # the caps the kernel's wrapper keeps per lanes tensor: a repeated
-    # count derives them once
-    from yet_another_wizz_tpu_torch.ops.cuda_paircount import _device_caps
-
     count_chunk_blocks_plain(
         lanes1, lanes2, tile1, tile2, chord2_table,
-        cols_binned=cols_binned, direct=direct, caps_of=_device_caps,
+        cols_binned=cols_binned, direct=direct,
     )
     partial = partial_counts_torch(
         lanes1, lanes2, tile1, tile2, chord2_table,
         cols_binned=cols_binned, direct=direct, chunk_size=chunk_size,
     )
-    return segment_sum_torch(partial, slot, pairs.num_slots)
+    return segment_sum_torch(partial, index.slot, pairs.num_slots)
+
+
+def count_pairs_engine(
+    lanes1: torch.Tensor,
+    lanes2: torch.Tensor,
+    pairs: TilePairs,
+    chord2_table: torch.Tensor,
+    *,
+    backend: str = "auto",
+    cols_binned: bool = False,
+    direct: tuple | None = None,
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+) -> torch.Tensor:
+    """``(num_slots, B, E)`` float32 counts of ``pairs``, the one choice of
+    the engine: the CUDA kernels
+    (:func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`)
+    for lanes on a CUDA device unless ``backend`` is ``"torch"``, else the
+    plain engine (:func:`count_pairs_torch`). Backend ``"cuda"`` raises for
+    lanes on another device."""
+    device = lanes1.device
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' needs a CUDA device, got device '{device}'"
+        )
+    if device.type == "cuda" and backend != "torch":
+        from yet_another_wizz_tpu_torch.ops.cuda_paircount import (
+            count_pairs_cuda,
+        )
+
+        return count_pairs_cuda(
+            lanes1, lanes2, pairs, chord2_table, cols_binned=cols_binned,
+            direct=direct,
+        )
+    return count_pairs_torch(
+        lanes1, lanes2, pairs, chord2_table, cols_binned=cols_binned,
+        direct=direct, chunk_size=chunk_size,
+    )
 
 
 AUDIT_RESIDENT_BYTES = 2 << 30
@@ -619,8 +653,6 @@ def _flag_pass(tiles1, tiles2, pairs, table, band, device, chunk_size):
     indexed by the window's ``arange``, so the device holds about
     :data:`AUDIT_WINDOW_BYTES` of lanes (and their chunk caps, on the card)
     at a time."""
-    from yet_another_wizz_tpu_torch.ops.cuda_paircount import _pair_index
-
     cols_binned = tiles2.binned
     if tiles1.lane_data.nbytes + tiles2.lane_data.nbytes <= AUDIT_RESIDENT_BYTES:
         index = _pair_index(pairs, device)
@@ -778,11 +810,11 @@ def count_pairs_tiles(
     float32 tensor is returned as soon as the work is queued on
     ``device``; the caller copies it to the host later.
 
-    Backends: ``auto`` (the CUDA kernel wrapper, which runs the kernels on
-    a CUDA device and their plain versions on the CPU), ``cuda`` (the
-    kernels; raises unless ``device`` is a CUDA device), ``torch`` (the
-    plain PyTorch engine on ``device``), ``oracle`` (float64 scipy
-    kd-trees on the host, requires ``edges_radian``).
+    Backends: ``auto`` (the CUDA kernels on a CUDA device, the plain
+    PyTorch engine on the CPU), ``cuda`` (the kernels; raises unless
+    ``device`` is a CUDA device), ``torch`` (the plain PyTorch engine on
+    ``device``), ``oracle`` (float64 scipy kd-trees on the host, requires
+    ``edges_radian``); :func:`count_pairs_engine` chooses.
 
     A binned second tile set counts equal-bin pairs only
     (autocorrelation-style counting). With ``direct`` (a ``(num_sub,
@@ -850,31 +882,16 @@ def count_pairs_tiles(
             )
         return counts
 
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend 'cuda' needs a CUDA device, got device '{device}'"
-        )
     table = np.ascontiguousarray(chord2_table, np.float32)
     misses = _device_table.cache_info().misses
     table = _device_table(table.tobytes(), table.shape, device)
     if _device_table.cache_info().misses == misses:
         count("cache.hit.table")
-    lanes1 = tiles1.device_data(device)
-    lanes2 = tiles2.device_data(device)
-    if backend == "torch":
-        result = count_pairs_torch(
-            lanes1, lanes2, pairs, table, cols_binned=cols_binned,
-            direct=direct, chunk_size=chunk_size,
-        )
-    else:
-        from yet_another_wizz_tpu_torch.ops.cuda_paircount import (
-            count_pairs_cuda,
-        )
-
-        result = count_pairs_cuda(
-            lanes1, lanes2, pairs, table, cols_binned=cols_binned,
-            direct=direct,
-        )
+    result = count_pairs_engine(
+        tiles1.device_data(device), tiles2.device_data(device), pairs, table,
+        backend=backend, cols_binned=cols_binned, direct=direct,
+        chunk_size=chunk_size,
+    )
 
     if defer and not audit:
         return result

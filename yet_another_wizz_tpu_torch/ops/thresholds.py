@@ -239,6 +239,17 @@ class AngularEdges:
     def num_scales(self) -> int:
         return self.scale_maps.shape[2]
 
+    def engine_table(self, backend: str = "auto", audit: bool = False):
+        """``(table, edges_radian, direct_spec, mapper)`` of the engine:
+        the direct-mode tables when the edges carry them, except for the
+        ``oracle`` backend and the ``audit``, which need the union-edge
+        cumulative representation (both are the same in float64, see
+        :class:`DirectEdges`)."""
+        direct = self.direct
+        if direct is not None and backend != "oracle" and not audit:
+            return direct.combined_table(), direct.edges, direct.spec, direct
+        return self.chord2_table, self.edges, None, self
+
     def counts_to_scales(self, cumulative: NDArray) -> NDArray:
         """Convert cumulative counts ``(..., B, E)`` into per-scale counts
         ``(S, ..., B)`` in float64."""

@@ -32,6 +32,7 @@ tile caps) uses the native C++ kernels from
 from __future__ import annotations
 
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING
 
@@ -138,6 +139,27 @@ def chunk_caps(lanes: torch.Tensor, chunk_size: int = CHUNK_SIZE) -> torch.Tenso
     caps[..., 3] = torch.where(empty, -inf, radius32)
     caps[..., 4] = torch.where(covered, bins, inf.double()).amin(dim=-1).float()
     caps[..., 5] = torch.where(covered, bins, -inf.double()).amax(dim=-1).float()
+    return caps
+
+
+_caps: dict[int, tuple[int, torch.Tensor]] = {}
+"""Chunk caps by ``id`` of the lanes they were derived from, with the
+lanes' version counter."""
+
+
+def _device_caps(lanes: torch.Tensor) -> torch.Tensor:
+    """The :func:`chunk_caps` of ``lanes`` on their device: the only source
+    of the caps the CUDA kernels read, and of those the plain engine counts
+    its chunk blocks with. Derived on the lanes' first use and cached until
+    they are freed or changed in place."""
+    key = id(lanes)
+    cached = _caps.get(key)
+    if cached is not None and cached[0] == lanes._version:
+        return cached[1]
+    if cached is None:
+        weakref.finalize(lanes, _caps.pop, key, None)
+    caps = chunk_caps(lanes)
+    _caps[key] = (lanes._version, caps)
     return caps
 
 

@@ -4,9 +4,9 @@ Ported from the JAX package's ``parallel/sharded.py``. The unit of
 distribution is the flat, slot-sorted tile-pair list of
 :func:`~yet_another_wizz_tpu_torch.ops.linkage.build_tile_pairs`. Each
 shard of a :class:`Mesh` counts its sub-list with the single-device engine
-(:func:`~yet_another_wizz_tpu_torch.ops.cuda_paircount.count_pairs_cuda`:
-kernel A, then kernel B, on a CUDA device; their plain versions on the
-CPU) into a ``(num_slots, B, E)`` float32 partial, and the partials are
+(:func:`~yet_another_wizz_tpu_torch.ops.paircount.count_pairs_engine`:
+kernel A, then kernel B, on a CUDA device; the plain engine on the CPU)
+into a ``(num_slots, B, E)`` float32 partial, and the partials are
 summed in shard order ``0..N-1`` on the first device: the counterpart of
 the JAX package's ``psum``. Three catalog layouts (``data_sharding=``):
 
@@ -324,10 +324,9 @@ def _count_shard(tiles1, tiles2, steps, table, *, mesh, layout, shard,
                  devices, backend, direct) -> torch.Tensor:
     """One shard's ``(num_slots, B, E)`` float32 partial on its device: the
     engine over each of its steps, the steps summed in order."""
-    from yet_another_wizz_tpu_torch.ops.cuda_paircount import count_pairs_cuda
     from yet_another_wizz_tpu_torch.ops.paircount import (
         _device_table,
-        count_pairs_torch,
+        count_pairs_engine,
     )
 
     device = devices[shard]
@@ -336,13 +335,12 @@ def _count_shard(tiles1, tiles2, steps, table, *, mesh, layout, shard,
         lanes2 = tiles2.device_data(device)
     else:
         lanes2 = tiles2.device_data(device, shard=(mesh.size, shard))
-    engine = count_pairs_torch if backend == "torch" else count_pairs_cuda
     total = None
     for row, sub_list in steps:
         lanes1 = _row_lanes(tiles1, mesh, row, device, devices)
-        counts = engine(
-            lanes1, lanes2, sub_list, table, cols_binned=tiles2.binned,
-            direct=direct,
+        counts = count_pairs_engine(
+            lanes1, lanes2, sub_list, table, backend=backend,
+            cols_binned=tiles2.binned, direct=direct,
         )
         total = counts if total is None else total.add_(counts)
     return total
@@ -411,9 +409,9 @@ def count_pairs_sharded(
     float64 ``(num_slots, B, E)`` counts.
 
     ``mesh`` defaults to :func:`default_mesh`; ``data_sharding`` is one of
-    the layouts of the module docstring. ``backend`` runs each shard with
-    the CUDA kernels (``auto``, ``cuda``; their plain versions on the CPU)
-    or the plain engine (``torch``). With ``defer=True`` (single-process
+    the layouts of the module docstring. ``backend`` chooses each shard's
+    engine as in :func:`~yet_another_wizz_tpu_torch.ops.paircount.
+    count_pairs_engine`. With ``defer=True`` (single-process
     jobs) the float32 sum is returned on the mesh's first device as soon
     as the work is queued."""
     if mesh is None:
